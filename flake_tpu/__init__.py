@@ -1,4 +1,5 @@
-"""flake-tpu: a TPU-native FLAC encoder framework (JAX/XLA + native runtime).
+"""flake-tpu: a FLAC encoder whose analysis and bitstream emission run on
+an NVIDIA GPU through JAX/XLA, with a small native (C++) runtime.
 
 Public API mirrors the reference encoder's lifecycle (flake.h): build a
 :class:`~flake_tpu.params.StreamConfig` (via
@@ -9,35 +10,11 @@ decoder (:mod:`flake_tpu.decoder`) and container IO (:mod:`flake_tpu.io`)
 complete the toolkit.
 """
 
-import os
-
 import jax
 
 # Exact int64 residual/search arithmetic and reference-matching float64
 # analysis require x64 (see flake_tpu.ops.common).
 jax.config.update("jax_enable_x64", True)
-
-# Persistent XLA compilation cache: the encoder compiles one program per
-# (level, block size, channels, bps) configuration — cache them across
-# processes like any production serving binary would. TPU-only: XLA:CPU
-# AOT cache entries are tied to exact host CPU features and can load
-# miscompiled code when the detected features drift between processes.
-_cache_dir = os.environ.get(
-    "FLAKE_TPU_CACHE_DIR",
-    os.path.join(os.path.expanduser("~"), ".cache", "flake_tpu", "xla"))
-
-
-def _enable_compile_cache_if_tpu() -> None:
-    """Call once the backend choice is final (Encoder/bench startup)."""
-    if _cache_dir == "0":
-        return
-    try:
-        if jax.default_backend() != "cpu":
-            jax.config.update("jax_compilation_cache_dir", _cache_dir)
-            jax.config.update(
-                "jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
 
 from flake_tpu.version import __version__, get_version  # noqa: E402,F401
 from flake_tpu.params import (  # noqa: E402,F401

@@ -16,6 +16,7 @@ import numpy as np
 
 from flake_tpu import metadata
 from flake_tpu import params as P
+from flake_tpu import platform
 from flake_tpu.encoder import Encoder
 from flake_tpu.io import open_pcm
 from flake_tpu.version import get_version
@@ -50,20 +51,19 @@ options:
        [-v #]       Variable block size
                         0 = fixed (default)
                         1 = variable
-TPU-native extensions (not in the reference CLI):
+Extensions (not in the reference CLI):
        [--lpc-dtype float64|float32]
                     LPC analysis precision. float64 matches the
-                    reference's doubles bit-for-bit; float32 is faster
-                    on TPU with a negligible (~0.0001%) size change.
-                    Output is losslessly decodable either way.
+                    reference's doubles bit-for-bit; float32 may pick
+                    slightly different coefficients (a negligible size
+                    change). Output is losslessly decodable either way.
        [--stats]    Print device/pack timing counters after encoding
        [--pack-backend auto|device|host]
                     Bitstream emission backend: 'device' packs the
-                    FLAC bytes on the TPU (Pallas word merge; D2H
-                    ships ~the compressed size), 'host' uses the
-                    native C++ packer; 'auto' (default) picks device
-                    when the config supports it. Output bytes are
-                    identical.
+                    FLAC bytes on the GPU (D2H ships ~the compressed
+                    size), 'host' uses the native C++ packer; 'auto'
+                    (default) picks device when the config supports
+                    it. Output bytes are identical.
 """
 
 
@@ -100,7 +100,7 @@ def parse_args(argv: list[str]) -> Options | int:
     while i < len(argv):
         arg = argv[i]
         if arg.startswith("--") and len(arg) > 2:
-            # TPU-native long options (the reference CLI has none; its
+            # long options (the reference CLI has none; its
             # '-xyz is a filename' rule never produces '--' names)
             if arg == "--lpc-dtype":
                 i += 1
@@ -367,10 +367,17 @@ def main(argv: list[str] | None = None) -> int:
     if isinstance(opts, int):
         return 0 if opts == 2 else opts
 
+    try:
+        dev = platform.resolve()
+    except RuntimeError as e:
+        sys.stderr.write(f"error: {e}\n")
+        return 1
     if not opts.quiet:
-        sys.stderr.write(f"\nFlake-TPU: FLAC audio encoder\n"
+        sys.stderr.write(f"\nflake-tpu: FLAC audio encoder\n"
                          f"version {get_version()}\n"
-                         f"(c) 2026 flake-tpu contributors\n\n")
+                         f"(c) 2026 flake-tpu contributors\n"
+                         f"device: {dev['count']} x {dev['kind']} "
+                         f"({dev['platform']})\n\n")
 
     rc = 0
     for idx, infile in enumerate(opts.infiles):

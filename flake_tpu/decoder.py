@@ -160,7 +160,16 @@ def _read_utf8_number(br: BitReader) -> int:
     return val
 
 
-def _decode_subframe(br: BitReader, n: int, obits: int) -> np.ndarray:
+def _peek_rice_header(br: BitReader, skip_bits: int) -> dict:
+    """Residual coding method and partition order, read ``skip_bits``
+    past the current position without moving it."""
+    peek = BitReader(br.data, br.pos + skip_bits)
+    method = peek.read(2)
+    return {"method": method, "porder": peek.read(4)}
+
+
+def _decode_subframe(br: BitReader, n: int, obits: int,
+                     decisions: list | None = None) -> np.ndarray:
     pad = br.read(1)
     if pad != 0:
         raise FlacDecodeError("subframe padding bit set")
@@ -170,10 +179,13 @@ def _decode_subframe(br: BitReader, n: int, obits: int) -> np.ndarray:
         wasted = 1 + br.read_unary()
     obits -= wasted
 
+    sub = {"wasted": wasted}
     if type_code == 0:  # CONSTANT
+        sub["type"] = "constant"
         v = br.read_signed(obits)
         out = np.full(n, v, dtype=np.int64)
     elif type_code == 1:  # VERBATIM
+        sub["type"] = "verbatim"
         lib = _get_native()
         if lib is not None:
             out = np.empty(n, dtype=np.int64)
@@ -188,6 +200,8 @@ def _decode_subframe(br: BitReader, n: int, obits: int) -> np.ndarray:
                            dtype=np.int64)
     elif 8 <= type_code <= 12:  # FIXED, order 0-4
         order = type_code - 8
+        sub.update(type="fixed", order=order,
+                   **_peek_rice_header(br, order * obits))
         out = _decode_predicted(br, n, obits, order, FIXED_COEFS[order],
                                 0)
     elif type_code >= 32:  # LPC
@@ -200,11 +214,15 @@ def _decode_subframe(br: BitReader, n: int, obits: int) -> np.ndarray:
         if shift < 0:
             raise FlacDecodeError("negative LPC shift")
         coefs = [br.read_signed(precision) for _ in range(order)]
+        sub.update(type="lpc", order=order, shift=shift, coefs=coefs,
+                   **_peek_rice_header(br, 0))
         out = _decode_predicted(br, n, obits, order, coefs, shift,
                                 warmup=warmup)
     else:
         raise FlacDecodeError(f"reserved subframe type {type_code}")
 
+    if decisions is not None:
+        decisions.append(sub)
     return out << wasted
 
 
@@ -320,11 +338,15 @@ def _parse_metadata(data: bytes):
     return streaminfo, vendor, entries, pos
 
 
-def decode_frame(data: bytes, byte_pos: int, si: StreamInfo):
+def decode_frame(data: bytes, byte_pos: int, si: StreamInfo,
+                 decisions: list | None = None):
     """Decode one frame starting at ``byte_pos``.
 
     Returns (samples int32 [n, channels], new_byte_pos, frame_or_sample_no).
-    Raises FlacDecodeError on any CRC/syntax violation.
+    Raises FlacDecodeError on any CRC/syntax violation. When
+    ``decisions`` is a list, one dict per subframe is appended to it:
+    the encoder's choices as coded (type, order, LPC shift and
+    coefficients, Rice method and partition order, wasted bits).
     """
     br = BitReader(data, byte_pos * 8)
     sync = br.read(15)
@@ -370,13 +392,14 @@ def decode_frame(data: bytes, byte_pos: int, si: StreamInfo):
 
     if ch_code < 8:
         channels = ch_code + 1
-        chans = [_decode_subframe(br, n, bps) for _ in range(channels)]
+        chans = [_decode_subframe(br, n, bps, decisions)
+                 for _ in range(channels)]
         out = np.stack(chans, axis=1)
     elif ch_code in (8, 9, 10):
         ob0 = bps + (1 if ch_code == 9 else 0)
         ob1 = bps + (1 if ch_code in (8, 10) else 0)
-        c0 = _decode_subframe(br, n, ob0)
-        c1 = _decode_subframe(br, n, ob1)
+        c0 = _decode_subframe(br, n, ob0, decisions)
+        c1 = _decode_subframe(br, n, ob1, decisions)
         if ch_code == 8:      # left/side
             left, right = c0, c0 - c1
         elif ch_code == 9:    # right/side
@@ -429,3 +452,41 @@ def decode_stream(data: bytes, verify_md5: bool = True) -> DecodedStream:
                          samples=pcm.astype(np.int32),
                          frames=nframes, md5_ok=md5_ok,
                          vorbis_vendor=vendor, vorbis_entries=entries)
+
+
+def frame_decisions(data: bytes) -> list[list[dict]]:
+    """Per frame, per subframe, the encoder's decisions as coded in the
+    stream (see :func:`decode_frame`), plus the stereo mode."""
+    si, _, _, pos = _parse_metadata(data)
+    frames = []
+    while pos < len(data):
+        subs: list[dict] = []
+        ch_code = data[pos + 3] >> 4
+        _, pos, _ = decode_frame(data, pos, si, decisions=subs)
+        for sub in subs:
+            sub["channel_assignment"] = ch_code
+        frames.append(subs)
+    return frames
+
+
+def first_difference(a: bytes, b: bytes) -> str | None:
+    """None when two encodings of one input are equal; otherwise where
+    they first part: the frame, the subframe and the decision (stereo
+    mode, subframe type, order, coefficients, shift, partition order),
+    or the byte offset when the decisions agree."""
+    if a == b:
+        return None
+    fa, fb = frame_decisions(a), frame_decisions(b)
+    for f, (sa, sb) in enumerate(zip(fa, fb)):
+        for c, (da, db) in enumerate(zip(sa, sb)):
+            for key in ("channel_assignment", "type", "wasted", "order",
+                        "coefs", "shift", "method", "porder"):
+                if da.get(key) != db.get(key):
+                    return (f"frame {f} subframe {c}: {key} "
+                            f"{da.get(key)} != {db.get(key)}")
+    if len(fa) != len(fb):
+        return f"frame count {len(fa)} != {len(fb)}"
+    pos = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y) \
+        if len(a) == len(b) else min(len(a), len(b))
+    return (f"decisions agree; bytes part at offset {pos} "
+            f"(lengths {len(a)} and {len(b)})")

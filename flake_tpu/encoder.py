@@ -1,6 +1,6 @@
-"""Production encoder: batched TPU analysis + native bitstream back-end.
+"""Production encoder: batched device analysis + bitstream emission.
 
-The TPU-first inversion of the reference's serial encode loop
+The batched inversion of the reference's serial encode loop
 (flake.c:624-663 / encode.c:919-977): the stream is chunked into frames,
 thousands of frames are analyzed at once on device
 (:func:`flake_tpu.ops.frame.analyze_frames`), and the native C++ packer
@@ -28,6 +28,7 @@ import jax.numpy as jnp
 
 from flake_tpu import metadata
 from flake_tpu import params as P
+from flake_tpu import platform
 from flake_tpu.native import pack_frames
 from flake_tpu.ops.frame import FrameConfig, analyze_frames_jit
 
@@ -69,10 +70,9 @@ class Encoder:
         (ops/bitpack.py) so D2H ships ~the compressed size and the host
         only patches CRCs; "host" ships the analysis tensors and packs
         with the native C++ packer; "auto" (default) picks the device
-        packer whenever the config supports it (single-mesh configs
-        with <= 32-bit sample fields). Output bytes are identical."""
-        import flake_tpu
-        flake_tpu._enable_compile_cache_if_tpu()
+        packer whenever the config supports it. Output bytes are
+        identical."""
+        platform.resolve()
         self.subset = P.validate_params(cfg)
         self.vorbis_entries = list(vorbis_entries or [])
         # encode-side counters (observability; SURVEY §5).
@@ -94,9 +94,6 @@ class Encoder:
         if pack_backend not in ("auto", "device", "host"):
             raise ValueError(f"bad pack_backend {pack_backend!r}")
         self.pack_backend = pack_backend
-        # round 5: the device packer covers every legal config (wide
-        # sample fields split into slot pairs), so pack_backend="device"
-        # no longer has an unsupported-config failure mode
         self._sharded_analyzers: dict = {}
         self._sharded_packers: dict = {}
         if mesh is not None:
@@ -348,11 +345,10 @@ class Encoder:
                     cnums.astype(np.int64), bs_code=bs_code,
                     sr_code=self.sr_code,
                     allow_vbs=self.params.allow_vbs)
-                # bps<=16 samples upload as int16 (exact; halves H2D,
-                # which dominates e2e through thin links) — guarded by
-                # an actual range check so out-of-range input (garbage
-                # in, but host/device parity must still hold) keeps
-                # the wide path
+                # bps<=16 samples upload as int16 (exact; halves H2D)
+                # — guarded by an actual range check so out-of-range
+                # input (garbage in, but host/device parity must still
+                # hold) keeps the wide path
                 up = chunk
                 if self.bps <= 16 and chunk.size \
                         and chunk.min() >= -32768 and chunk.max() < 32768:
@@ -360,13 +356,11 @@ class Encoder:
                 if self.mesh is not None:
                     run, gather, nsh = self._get_sharded_packer(cfg)
                     packed = run(up, hdr_bits, hdr_bytes, hdr_nb)
-                    return packed, (hdr_nb, cnums, n), (gather, nsh), \
-                        (up, hdr_bits, hdr_bytes, hdr_nb)
+                    return packed, (hdr_nb, cnums, n), (gather, nsh)
                 packed = bitpack.analyze_and_pack_jit(
                     jnp.asarray(up), cfg, jnp.asarray(hdr_bits),
                     jnp.asarray(hdr_bytes), jnp.asarray(hdr_nb))
-                return packed, (hdr_nb, cnums, n), (None, 1), \
-                    (up, hdr_bits, hdr_bytes, hdr_nb)
+                return packed, (hdr_nb, cnums, n), (None, 1)
             if self.mesh is not None:
                 analysis = self._analyze_sharded(chunk, cfg, hdr_bits)
             else:
@@ -382,23 +376,10 @@ class Encoder:
             drops the granule padding (no per-frame Python loop)."""
             from flake_tpu.native import crc_patch
 
-            packed, (hdr_nb, cnums, n), (gather, nsh), raw = item
+            packed, (hdr_nb, cnums, n), (gather, nsh) = item
             t0 = time.perf_counter()
             jax.block_until_ready(packed["words"])   # device compute
             t_ready = time.perf_counter()
-            if bool(np.asarray(packed.get("overflow", False))):
-                # pathological Rice runs exceeded the merge kernel's
-                # static row span (bitpack.kmax_for): re-pack this
-                # batch through the exact XLA formulation (rare;
-                # correctness path, tested via kmax=0 monkeypatch)
-                up_r, hb_r, hby_r, hn_r = raw
-                packed = bitpack.analyze_and_pack_jit(
-                    jnp.asarray(up_r), cfg, jnp.asarray(hb_r),
-                    jnp.asarray(hby_r), jnp.asarray(hn_r),
-                    backend="xla")
-                gather = None
-                nsh = 1
-                jax.block_until_ready(packed["words"])
             fb_all = np.asarray(packed["frame_bytes"])
             tb = np.asarray(packed["total_bits"])
             if not np.array_equal(tb[:n], fb_all[:n] * 8):

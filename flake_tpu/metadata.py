@@ -2,7 +2,7 @@
 
 Re-implementation of the metadata layer (reference: libflake/metadata.c and
 the header-assembly helpers encode.c:52-156). Runs once per stream, so it
-is plain Python shared by both the oracle and the TPU pipeline.
+is plain Python shared by both the oracle and the device pipeline.
 """
 
 from __future__ import annotations

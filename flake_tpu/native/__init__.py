@@ -2,14 +2,17 @@
 
 The reference encoder is native C throughout; flake-tpu keeps native
 code where the work is byte-plumbing (bitstream emission, CRC, stream
-stitching) and uses the TPU for all numeric search. The extension is
-built on first use with g++ (no pybind11 dependency) and cached next to
-the source.
+stitching) and runs all numeric search on the accelerator. Each library
+is built with g++ on first use (no pybind11 dependency), next to its
+source, under a name that hashes the source and the build command, so a
+library built from other source, or copied in from another machine's
+build, is never loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import pathlib
 import subprocess
@@ -19,31 +22,50 @@ import numpy as np
 
 _DIR = pathlib.Path(__file__).resolve().parent
 _SRC = _DIR / "packer.cpp"
-_LIB = _DIR / "_flake_native.so"
 _VSRC = _DIR / "verifier.cpp"
-_VLIB = _DIR / "_flake_verifier.so"
+# portable code generation: no host-specific -march, whose output may
+# not run on another machine's CPU
+_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp")
 _lock = threading.Lock()
 _lib = None
 _vlib = None
 
 
-def _build(src: pathlib.Path = _SRC, out: pathlib.Path = _LIB) -> None:
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp",
-           "-march=native", str(src), "-o", str(out) + ".tmp"]
-    subprocess.run(cmd, check=True, capture_output=True)
-    os.replace(str(out) + ".tmp", out)
+def lib_path(src: pathlib.Path, flags=_FLAGS) -> pathlib.Path:
+    """Where the library built from ``src`` with ``flags`` lives: the
+    name carries a hash of both, so any change to either rebuilds."""
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(("g++",) + tuple(flags)).encode())
+    return src.with_name(f"_{src.stem}-{h.hexdigest()[:16]}.so")
+
+
+def ensure_built(src: pathlib.Path, flags=_FLAGS) -> pathlib.Path:
+    """Build the library for ``src`` unless it already exists; return
+    its path. A failed build raises ``RuntimeError`` with the compiler's
+    output."""
+    out = lib_path(src, flags)
+    if out.exists():
+        return out
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = ["g++", *flags, str(src), "-o", str(tmp)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"building {out.name} failed: {' '.join(cmd)}"
+                           f"\n{proc.stderr}")
+    os.replace(tmp, out)   # atomic: concurrent builders agree
+    return out
 
 
 def get_verifier() -> ctypes.CDLL:
-    """Load (building if stale) the verification-decoder helper — a
+    """Load (building on first use) the verification-decoder helper — a
     separate shared object from the encoder runtime so the decoder
     stays an independent oracle."""
     global _vlib
     with _lock:
         if _vlib is not None:
             return _vlib
-        _ensure_built(_VSRC, _VLIB)
-        lib = ctypes.CDLL(str(_VLIB))
+        lib = ctypes.CDLL(str(ensure_built(_VSRC)))
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -59,33 +81,13 @@ def get_verifier() -> ctypes.CDLL:
         return lib
 
 
-def _ensure_built(src: pathlib.Path, out: pathlib.Path) -> None:
-    """Build ``out`` from ``src`` if missing or stale. A stale rebuild
-    failure (e.g. read-only site-packages or no toolchain) falls back
-    to the packaged library; only a missing library is fatal."""
-    if not out.exists():
-        _build(src, out)
-        return
-    if out.stat().st_mtime < src.stat().st_mtime:
-        try:
-            _build(src, out)
-        except Exception as exc:
-            import warnings
-            warnings.warn(
-                f"rebuild of stale native library {out.name} failed "
-                f"({exc}); falling back to the prebuilt copy, which "
-                f"predates the current {src.name}", RuntimeWarning,
-                stacklevel=2)
-
-
 def get_lib() -> ctypes.CDLL:
-    """Load (building if stale) the native library."""
+    """Load (building on first use) the native library."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        _ensure_built(_SRC, _LIB)
-        lib = ctypes.CDLL(str(_LIB))
+        lib = ctypes.CDLL(str(ensure_built(_SRC)))
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")

@@ -1,7 +1,7 @@
 // flake-tpu native runtime: FLAC bitstream packer, CRC, stream stitcher.
 //
 // Host-side counterpart of the device analysis pipeline: receives the
-// per-frame selection tensors and residuals computed on TPU and emits
+// per-frame selection tensors and residuals computed on the device and emits
 // FLAC frames (header + subframes + Rice codes + CRC-8/16), parallel
 // over frames with OpenMP. This is the native analogue of the
 // reference's bitio.h/encode.c emission layer, re-architected for

@@ -7,7 +7,7 @@ raw audio and ~3x the compressed output (the round-3 e2e bottleneck).
 This module emits the final frame bytes *on device* as pure dense XLA
 ops, so only ~the compressed bytes cross D2H.
 
-The TPU-first formulation rests on three observations:
+The formulation rests on three observations:
 
 1. Every frame is a fixed *layout* of variable-*length* bit fields
    (header bytes, subframe headers, warm-ups, coefficients, Rice
@@ -28,15 +28,14 @@ The TPU-first formulation rests on three observations:
    target words. uint32 wraparound cancels in the differences; the true
    per-word sum never overflows because bits are disjoint.
 
-No scatter, no serial loop, no Pallas required — cumsum + gathers, all
-batched over frames. CRC-8/CRC-16 placeholders are emitted as zeros and
+No scatter, no serial loop, no hand-written kernel — cumsum + gathers,
+all batched over frames. CRC-8/CRC-16 placeholders are emitted as zeros and
 patched on host over the final bytes (flake_crc_patch), which is the
 only remaining host byte-touching.
 
 Slot payloads are capped at 32 bits; sample fields that can exceed it
-(bps-32 stereo's 33-bit side channel) are emitted as (hi, lo) slot
-pairs that the round-5 slot combiner re-joins into one 64-bit payload
-node, so every legal config packs on device (``supports``).
+(bps-32 stereo's 33-bit side channel) are emitted as adjacent (hi, lo)
+slot pairs, so every legal config packs on device (``supports``).
 """
 
 from __future__ import annotations
@@ -59,8 +58,7 @@ HDR_SLOTS = 16  # max header bytes: 4 fixed + 7 utf8 + 2 + 2 + crc8
 def supports(cfg: FrameConfig) -> bool:
     """Device emission covers every legal config: fields wider than 32
     bits (bps-32 stereo's 33-bit side channel, encode.c:676-693) are
-    emitted as two adjacent slots (hi 17 / lo 16) that the slot
-    combiner re-joins into one 64-bit payload node."""
+    emitted as two adjacent slots (hi 17 / lo 16)."""
     return True
 
 
@@ -127,10 +125,9 @@ def frame_header_bytes(nums: np.ndarray, *, bs_code, sr_code,
 
 def _exclusive_cumsum_hier(x):
     """Exclusive prefix sum along the last axis via hierarchical
-    log-shift doubling — pure elementwise adds. jnp.cumsum's TPU
-    lowering is pathological at these shapes (~34 ms for [512, 8876]);
-    this is the same math as ~8 shifted adds plus a tiny chunk-level
-    pass. x int32 [F, M]; returns int32 [F, M]."""
+    log-shift doubling: ~8 shifted elementwise adds within 128-wide
+    chunks plus a small chunk-level pass. x int32 [F, M]; returns
+    int32 [F, M]."""
     F, M = x.shape
     nc = -(-M // 128)
     xp = jnp.pad(x, ((0, 0), (0, nc * 128 - M))) if nc * 128 != M else x
@@ -173,251 +170,29 @@ def _batched_lower_bound(a, targets):
     return lo
 
 
-# ---------------------------------------------------------------------------
-# round 5: two-level slot combining (pair -> quad, 64-bit payload cap)
-# ---------------------------------------------------------------------------
-#
-# The merge kernel's cost scales with slot-chunk count, so adjacent
-# slots are combined twice before alignment: a node is (len, sw, g,
-# ph:pl) — a bitstring of `len` bits whose nonzero bits live in
-# [len-g-sw, len-g), stored as the 64-bit integer ph*2^32+pl < 2^sw.
-# Combining A+B shifts A's payload up by lenB (+gap bookkeeping) and
-# ORs B's in; Rice codes' leading zero runs cost only length. A node
-# that would exceed 64 significant bits keeps A and spills B whole to
-# a per-level side array (full capacity — there is no overflow case),
-# which is ~all-zero on real content and skipped per-chunk in the
-# kernel via an activity flag in the cb sign bit.
-
-
-def _shr32(x, s):
-    """x >> s for s in [1, 32] (s==32 -> 0; negative s is garbage but
-    callers select those lanes away)."""
-    u32 = jnp.uint32
-    return (x >> u32(1)) >> jnp.clip(s - 1, 0, 31).astype(u32)
-
-
-def _shl64(ph, pl, sh):
-    """(ph:pl) << sh for sh in [0, 63]; caller guarantees the result
-    stays within 64 bits."""
-    u32 = jnp.uint32
-    shc = jnp.clip(sh, 0, 63)
-    lo_sh = jnp.clip(shc, 0, 31).astype(u32)
-    big = shc >= 32
-    sh2 = jnp.clip(shc - 32, 0, 31).astype(u32)
-    nph = jnp.where(big, pl << sh2,
-                    (ph << lo_sh) | _shr32(pl, 32 - shc))
-    npl = jnp.where(big, u32(0), pl << lo_sh)
-    return nph, npl
-
-
-def _pad_even(x, fill=0):
-    if x.shape[-1] % 2:
-        pads = [(0, 0)] * (x.ndim - 1) + [(0, 1)]
-        x = jnp.pad(x, pads, constant_values=fill)
-    return x
-
-
-def _combine_level(ln, sw, g, ph, pl, cap=64):
-    """One pairwise combining level along the last (even-length) axis.
-    Returns combined nodes [.., M/2] and the spill node arrays
-    (payload sw/relative start/ph/pl), zero where no spill."""
-    u32 = jnp.uint32
-    lnA, lnB = ln[..., 0::2], ln[..., 1::2]
-    swA, swB = sw[..., 0::2], sw[..., 1::2]
-    gA, gB = g[..., 0::2], g[..., 1::2]
-    phA, phB = ph[..., 0::2], ph[..., 1::2]
-    plA, plB = pl[..., 0::2], pl[..., 1::2]
-
-    sh = gA + lnB - gB                 # >= swB: ORs stay disjoint
-    sw_c = swA + sh
-    fits = sw_c <= cap
-    sph, spl = _shl64(phA, plA, jnp.where(fits, sh, 0))
-
-    azero = swA == 0
-    bzero = swB == 0
-    ln_n = lnA + lnB
-    sw_n = jnp.where(azero, swB,
-                     jnp.where(bzero, swA,
-                               jnp.where(fits, sw_c, swA)))
-    g_n = jnp.where(azero, gB,
-                    jnp.where(bzero | ~fits, gA + lnB, gB))
-    ph_n = jnp.where(azero, phB,
-                     jnp.where(bzero, phA,
-                               jnp.where(fits, sph | phB, phA)))
-    pl_n = jnp.where(azero, plB,
-                     jnp.where(bzero, plA,
-                               jnp.where(fits, spl | plB, plA)))
-
-    sp = (~azero) & (~bzero) & (~fits)
-    s_sw = jnp.where(sp, swB, 0)
-    s_rel = jnp.where(sp, lnA + lnB - gB - swB, 0)
-    s_ph = jnp.where(sp, phB, u32(0))
-    s_pl = jnp.where(sp, plB, u32(0))
-    return (ln_n, sw_n, g_n, ph_n, pl_n), (s_sw, s_rel, s_ph, s_pl)
-
-
-def _align3(ps, sw, ph, pl):
-    """Aligned 3-word contributions of a <=64-bit payload occupying
-    bits [ps, ps+sw): (w0, A->w0, B->w0+1, C->w0+2)."""
-    i32 = jnp.int32
-    u32 = jnp.uint32
-    active = sw > 0
-    w0 = (ps >> 5).astype(i32)
-    t = (ps & 31) + sw                 # in [1, 95] when active
-    z = 96 - t                         # left shift inside the window
-    zc = jnp.clip(z, 1, 31).astype(u32)
-    A1 = _shr32(ph, 32 - z)
-    B1 = (ph << zc) | _shr32(pl, 32 - z)
-    C1 = pl << zc
-    z2 = jnp.clip(z - 32, 0, 31).astype(u32)
-    A2 = (ph << z2) | _shr32(pl, 64 - z)
-    B2 = pl << z2
-    z3 = jnp.clip(z - 64, 0, 31).astype(u32)
-    A3 = pl << z3
-    big2 = z >= 64
-    big1 = z >= 32
-    A = jnp.where(big2, A3, jnp.where(big1, A2, A1))
-    Bw = jnp.where(big2, u32(0), jnp.where(big1, B2, B1))
-    Cw = jnp.where(big1, u32(0), C1)
-    A = jnp.where(active, A, u32(0)).astype(i32)
-    Bw = jnp.where(active, Bw, u32(0)).astype(i32)
-    Cw = jnp.where(active, Cw, u32(0)).astype(i32)
-    w0 = jnp.where(active, w0, 0)
-    return w0, A, Bw, Cw
-
-
-def _to_rows(x):
-    """[F, M] -> [F, nc, 128] row layout (nodes on lanes)."""
-    F, M = x.shape
-    nc = -(-M // 128)
-    if nc * 128 != M:
-        x = jnp.pad(x, ((0, 0), (0, nc * 128 - M)))
-    return x.reshape(F, nc, 128)
-
-
-def kmax_for(cfg: FrameConfig) -> tuple[int, int]:
-    """Static output-row spans per chunk for the combined merge.
-
-    A 128-node main chunk covers 512 original slots; with per-
-    partition-optimal Rice parameters the average code stays under
-    obits+3 bits, so the chunk's bit range is bounded and the row span
-    is static. Content that still exceeds it (legal but pathological
-    mixes) trips the `overflow` flag and re-packs via the XLA path."""
-    ob = cfg.bps + (1 if cfg.channels == 2 else 0)
-    k2 = -(-(512 * (ob + 3) + 95) // 4096) + 1
-    k1 = -(-(256 * (ob + 3) + 95) // 4096) + 1
-    return k2, k1
-
-
-def build_combined_parts(lengths, leading, payload, total_bits,
-                         kmax: int, kmax1: int):
-    """Combine slots twice and align for the v5 merge kernel.
-
-    Returns (kernel_inputs..., overflow[F] bool): mainw, (mA, mB, mC),
-    sp2w, (s2A, s2B, s2C), sp1w, (s1A, s1B), cb2, cb1."""
-    i32 = jnp.int32
-    ln = _pad_even(lengths)
-    lead = _pad_even(leading)
-    pay = _pad_even(payload)
-    sw = ln - lead
-    g = jnp.zeros_like(ln)
-    ph = jnp.zeros_like(pay)
-
-    (ln1, sw1, g1, ph1, pl1), (s1_sw, s1_rel, s1_ph, s1_pl) = \
-        _combine_level(ln, sw, g, ph, pay)
-    ln1p = _pad_even(ln1)
-    (ln2, sw2, g2, ph2, pl2), (s2_sw, s2_rel, s2_ph, s2_pl) = \
-        _combine_level(_pad_even(ln1), _pad_even(sw1), _pad_even(g1),
-                       _pad_even(ph1), _pad_even(pl1))
-
-    off2 = _exclusive_cumsum_hier(ln2)
-    lnA = ln1p[..., 0::2]
-    off1 = jnp.stack([off2, off2 + lnA], axis=-1) \
-        .reshape(off2.shape[0], -1)[..., :ln1.shape[-1]]
-
-    m_w0, m_A, m_B, m_C = _align3(off2 + ln2 - g2 - sw2, sw2, ph2, pl2)
-    s2_w0, s2_A, s2_B, s2_C = _align3(off2 + s2_rel, s2_sw, s2_ph,
-                                      s2_pl)
-    s1_w0, s1_A, s1_B, _ = _align3(off1 + s1_rel, s1_sw, s1_ph, s1_pl)
-
-    mainw = _to_rows(m_w0)
-    mainr = tuple(_to_rows(v) for v in (m_A, m_B, m_C))
-    sp2w = _to_rows(s2_w0)
-    sp2r = tuple(_to_rows(v) for v in (s2_A, s2_B, s2_C))
-    sp1w = _to_rows(s1_w0)
-    sp1r = tuple(_to_rows(v) for v in (s1_A, s1_B))
-
-    nc2 = mainw.shape[1]
-    nc1 = sp1w.shape[1]
-    M4 = ln2.shape[-1]
-    pad2 = nc2 * 128 - M4
-    offp = jnp.pad(off2, ((0, 0), (0, pad2)), mode="edge") \
-        if pad2 else off2
-    cb2 = jnp.concatenate(
-        [offp[:, ::128], total_bits[:, None]], axis=-1).astype(i32)
-    M2 = ln1.shape[-1]
-    pad1 = nc1 * 128 - M2
-    off1p = jnp.pad(off1, ((0, 0), (0, pad1)), mode="edge") \
-        if pad1 else off1
-    cb1 = jnp.concatenate(
-        [off1p[:, ::128], total_bits[:, None]], axis=-1).astype(i32)
-
-    def chunk_any(sw_arr, ncx):
-        pad = ncx * 128 - sw_arr.shape[-1]
-        sa = jnp.pad(sw_arr, ((0, 0), (0, pad))) if pad else sw_arr
-        return (sa.reshape(sa.shape[0], ncx, 128) > 0).any(axis=-1)
-
-    fl2 = chunk_any(s2_sw, nc2)
-    fl1 = chunk_any(s1_sw, nc1)
-
-    def chunk_row_span(cb):
-        r0 = (cb[:, :-1] & MASK31) >> 12
-        last = ((((cb[:, 1:] & MASK31) - 1) >> 5) + 2) >> 7
-        return jnp.maximum(last, r0) - r0 + 1
-
-    span2 = chunk_row_span(cb2)
-    span1 = chunk_row_span(cb1)
-    overflow = (span2 > kmax).any(axis=-1) \
-        | ((span1 > kmax1) & fl1).any(axis=-1)
-    # batch-wide true row need: the static kmax is the config's worst
-    # case, but typical content spans fewer rows per chunk — the caller
-    # dispatches a kernel specialized at this need (content-adaptive
-    # kmax), skipping provably-untouched rows
-    need2 = jnp.clip(span2.max(), 1, kmax).astype(jnp.int32)
-    need1 = jnp.clip(jnp.where(fl1, span1, 1).max(), 1, kmax1) \
-        .astype(jnp.int32)
-
-    neg = jnp.int32(-2147483648)
-    cb2 = cb2.at[:, :nc2].set(
-        jnp.where(fl2, cb2[:, :nc2] | neg, cb2[:, :nc2]))
-    cb1 = cb1.at[:, :nc1].set(
-        jnp.where(fl1, cb1[:, :nc1] | neg, cb1[:, :nc1]))
-    return (mainw, mainr, sp2w, sp2r, sp1w, sp1r, cb2, cb1), overflow, \
-        need2, need1
-
-
-MASK31 = 2147483647
-
-
 def pack_frames_device(analysis: dict, hdr_bytes, hdr_nbytes,
-                       cfg: FrameConfig, debug: bool = False,
-                       backend: str = "auto"):
+                       cfg: FrameConfig):
     """Emit final FLAC frame bytes for a batch of analyzed frames.
 
     analysis: the analyze_frames output dict (device tensors).
     hdr_bytes uint8 [F, HDR_SLOTS] / hdr_nbytes int32 [F] from
     :func:`frame_header_bytes`.
 
-    backend: "kernel" = the Pallas word merge (TPU),
-    "kernel_interp" = same in interpreter mode (CPU tests),
-    "xla" = the gather/cumsum formulation (fast on CPU backends),
-    "auto" = kernel on TPU else xla.
-
     Returns (words int32 [F, word_rows(cfg), 128] — each frame's final
     bytes as big-endian 32-bit words with zeroed CRC placeholders
     (byte view via :func:`words_to_slot_bytes`); total_bits int32 [F]
     — emitted bit count, == 8*frame_bytes when the layout agrees with
     the analysis accounting)."""
+    lengths, leading, payload, total_bits = slot_fields(
+        analysis, hdr_bytes, hdr_nbytes, cfg)
+    return merge_words(lengths, leading, payload, word_rows(cfg)), \
+        total_bits
+
+
+def slot_fields(analysis: dict, hdr_bytes, hdr_nbytes, cfg: FrameConfig):
+    """The frame layout as a static slot table: per frame, every field's
+    bit length, its leading zero bits and its <= 32-bit payload
+    (int32/int32/uint32 [F, M]), plus total_bits int32 [F]."""
     n = cfg.block_size
     C = cfg.channels
     i32 = jnp.int32
@@ -515,8 +290,7 @@ def pack_frames_device(analysis: dict, hdr_bytes, hdr_nbytes,
     g_active = pred[..., None] & (
         (g_idx & ((i32(1) << po_shift) - 1)) == 0)
     # k per grid group, k_of_g[g] = rice_k[g >> po_shift]: built as a
-    # select over the static shift values instead of a gather (TPU
-    # gathers are scalar-unit-bound; 9 broadcast expands are free)
+    # select over the static shift values instead of a gather
     k_of_g = jnp.zeros_like(rice_k[..., :G])
     for s in range(pmax_static + 1):
         parts = G >> s
@@ -620,89 +394,48 @@ def pack_frames_device(analysis: dict, hdr_bytes, hdr_nbytes,
                               axis=-1)
     payload = jnp.concatenate([payload, jnp.zeros((F, 2), u32)],
                               axis=-1)
-    M = lengths.shape[-1]
     total_bits = body_bits + pad_bits + 16
+    return lengths, leading, payload, total_bits.astype(i32)
 
-    if debug:
-        return lengths, leading, payload
 
-    wr = word_rows(cfg)
+def merge_words(lengths, leading, payload, wr: int):
+    """OR every slot's payload into its bit position (observations 2-3
+    of the module docstring): int32 [F, wr, 128] big-endian words."""
+    i32 = jnp.int32
+    u32 = jnp.uint32
+    F = lengths.shape[0]
     W = wr * 128
-    if backend == "auto":
-        backend = "kernel" if jax.default_backend() == "tpu" else "xla"
-    if backend in ("kernel", "kernel_interp"):
-        # Pallas merge over combined slot nodes: pair+quad combining
-        # shrinks the chunk count ~4x, then one MXU one-hot matmul per
-        # (chunk, row) places the payload words (pallas_bitmerge.py).
-        from flake_tpu.ops import pallas_bitmerge
+    # ---- aligned payload parts (2-word spans) ---------------------
+    offsets = _exclusive_cumsum_hier(lengths)
+    paylen = lengths - leading
+    paystart = offsets + leading
+    w0 = (paystart >> 5).astype(i32)
+    inword = paystart & 31
 
-        kmax, kmax1 = kmax_for(cfg)
-        parts, overflow, need2, _need1 = build_combined_parts(
-            lengths, leading, payload, total_bits, kmax, kmax1)
-        import os
-        if backend == "kernel_interp" \
-                or os.environ.get("FLAKE_ADAPTIVE_KMAX", "1") == "0":
-            # CPU interpret mode: one static-kmax trace (adaptive
-            # dispatch would multiply XLA:CPU compile time by kmax)
-            words3 = pallas_bitmerge.merge_combined(
-                *parts[:6], cb2=parts[6], cb1=parts[7], wr=wr,
-                kmax=kmax, kmax1=kmax1,
-                interpret=backend == "kernel_interp")
-        else:
-            # content-adaptive kmax: the static bound covers legal-but-
-            # pathological Rice runs, while typical content spans fewer
-            # output rows per 512-slot chunk — dispatch the kernel
-            # variant specialized at the batch's true max span (each
-            # skipped row is one fewer MXU one-hot matmul + RMW per
-            # chunk; in-kernel row gating measured slower than the
-            # wasted windows, branch flushes, so specialize instead)
-            def _branch(k):
-                def br(ops_):
-                    return pallas_bitmerge.merge_combined(
-                        *ops_[:6], cb2=ops_[6], cb1=ops_[7], wr=wr,
-                        kmax=k, kmax1=kmax1, interpret=False)
-                return br
-            words3 = jax.lax.switch(
-                need2 - 1, [_branch(k) for k in range(1, kmax + 1)],
-                parts)
-        return words3, total_bits.astype(i32), overflow
-    elif backend == "xla":
-        # ---- aligned payload parts (2-word spans) ---------------------
-        offsets = _exclusive_cumsum_hier(lengths)
-        paylen = lengths - leading
-        paystart = offsets + leading
-        w0 = (paystart >> 5).astype(i32)
-        inword = paystart & 31
-
-        t = paylen + inword                        # 1..63 when active
-        first = t <= 32
-        # shifts as uint32 so nothing promotes to (emulated) int64
-        sh_hi1 = jnp.clip(32 - t, 0, 31).astype(u32)
-        sh_hi2 = jnp.clip(t - 32, 0, 31).astype(u32)
-        sh_lo = jnp.clip(64 - t, 1, 31).astype(u32)
-        hi32 = jnp.where(first, payload << sh_hi1, payload >> sh_hi2)
-        lo32 = jnp.where(first, u32(0), payload << sh_lo)
-        active = paylen > 0
-        hi32 = jnp.where(active, hi32, u32(0))
-        lo32 = jnp.where(active, lo32, u32(0))
-        ex_hi = jnp.concatenate(
-            [jnp.zeros((F, 1), u32), jnp.cumsum(hi32, axis=-1)],
-            axis=-1)
-        ex_lo = jnp.concatenate(
-            [jnp.zeros((F, 1), u32), jnp.cumsum(lo32, axis=-1)],
-            axis=-1)
-        S = _batched_lower_bound(w0, jnp.arange(W + 1, dtype=i32))
-        A = jnp.take_along_axis(ex_hi, S, axis=1)   # [F, W + 1]
-        B = jnp.take_along_axis(ex_lo, S, axis=1)
-        hi_term = A[:, 1:] - A[:, :-1]              # slots with w0 == w
-        lo_prev = jnp.concatenate([B[:, :1], B[:, :-1]], axis=1)
-        lo_term = B - lo_prev                       # w0 == w - 1
-        words3 = (hi_term + lo_term[:, :W]).astype(i32) \
-            .reshape(F, wr, 128)
-    else:
-        raise ValueError(f"bad merge backend {backend!r}")
-    return words3, total_bits.astype(i32), \
-        jnp.zeros((F,), jnp.bool_)
+    t = paylen + inword                        # 1..63 when active
+    first = t <= 32
+    # shifts as uint32 so nothing promotes to int64
+    sh_hi1 = jnp.clip(32 - t, 0, 31).astype(u32)
+    sh_hi2 = jnp.clip(t - 32, 0, 31).astype(u32)
+    sh_lo = jnp.clip(64 - t, 1, 31).astype(u32)
+    hi32 = jnp.where(first, payload << sh_hi1, payload >> sh_hi2)
+    lo32 = jnp.where(first, u32(0), payload << sh_lo)
+    active = paylen > 0
+    hi32 = jnp.where(active, hi32, u32(0))
+    lo32 = jnp.where(active, lo32, u32(0))
+    ex_hi = jnp.concatenate(
+        [jnp.zeros((F, 1), u32), jnp.cumsum(hi32, axis=-1)],
+        axis=-1)
+    ex_lo = jnp.concatenate(
+        [jnp.zeros((F, 1), u32), jnp.cumsum(lo32, axis=-1)],
+        axis=-1)
+    S = _batched_lower_bound(w0, jnp.arange(W + 1, dtype=i32))
+    A = jnp.take_along_axis(ex_hi, S, axis=1)   # [F, W + 1]
+    B = jnp.take_along_axis(ex_lo, S, axis=1)
+    hi_term = A[:, 1:] - A[:, :-1]              # slots with w0 == w
+    lo_prev = jnp.concatenate([B[:, :1], B[:, :-1]], axis=1)
+    lo_term = B - lo_prev                       # w0 == w - 1
+    return (hi_term + lo_term[:, :W]).astype(i32).reshape(F, wr, 128)
 
 
 def words_to_slot_bytes(words3):
@@ -715,24 +448,22 @@ def words_to_slot_bytes(words3):
         .astype(jnp.uint8).reshape(F, wr * 512)
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "backend"))
+@functools.partial(jax.jit, static_argnames=("cfg",))
 def analyze_and_pack_jit(samples, cfg: FrameConfig, hdr_bits, hdr_bytes,
-                         hdr_nbytes, backend: str = "auto"):
+                         hdr_nbytes):
     """One fused dispatch: batched analysis + device bitstream emission.
 
     ``samples`` may be int16 (bps <= 16 content: exact, and halves the
-    H2D upload — the dominant cost through a thin host<->device link);
-    it is widened on device. Returns {words, total_bits, frame_bytes}
-    — the full analysis dict never leaves the device."""
+    H2D upload); it is widened on device. Returns {words, total_bits,
+    frame_bytes} — the full analysis dict never leaves the device."""
     from flake_tpu.ops.frame import analyze_frames
 
     samples = samples.astype(jnp.int32)
     analysis = analyze_frames(samples, cfg, hdr_bits)
-    words, total_bits, overflow = pack_frames_device(
-        analysis, hdr_bytes, hdr_nbytes, cfg, backend=backend)
+    words, total_bits = pack_frames_device(analysis, hdr_bytes,
+                                           hdr_nbytes, cfg)
     return {"words": words, "total_bits": total_bits,
-            "frame_bytes": analysis["frame_bytes"],
-            "overflow": jnp.any(overflow)}
+            "frame_bytes": analysis["frame_bytes"]}
 
 
 GRANULE_BYTES = 4096  # one [8, 128] int32 tile
@@ -742,14 +473,10 @@ GRANULE_BYTES = 4096  # one [8, 128] int32 tile
 def gather_granules_jit(words3, idx):
     """Compact per-frame word blocks to ~the compressed size for D2H.
 
-    Arbitrary-byte-offset placement is not expressible on TPU (DMA
-    slices must be tile-aligned), so compaction is granule-granular:
-    each frame's words split into 4 KiB granules ([8, 128] int32 — one
-    tile, so a leading-axis block gather is tile-aligned and runs at
-    memory bandwidth), and only the granules a frame actually uses are
-    gathered out. D2H then ships ceil(frame_bytes/4096)*4096 per frame
-    (~1.6x the compressed size at level 8, vs 2.1x more for padded
-    slots and 6.5x for raw analysis tensors); the host reassembles
+    Compaction is granule-granular: each frame's words split into
+    4 KiB granules ([8, 128] int32, a leading-axis block gather), and
+    only the granules a frame actually uses are gathered out. D2H then
+    ships ceil(frame_bytes/4096)*4096 per frame; the host reassembles
     byte-exact frames from its offset table while patching CRCs.
 
     words3 int32 [F, wr, 128]; idx int32 [g_pad] flat granule indices

@@ -1,10 +1,9 @@
-"""Shared helpers for the batched TPU ops.
+"""Shared helpers for the batched device ops.
 
 The package enables JAX x64 at import: exact int64 accumulation is
 required for bit-exact residuals (the decoder reconstructs with the same
 integer arithmetic), and the LPC analysis chain follows the reference's
-double precision. On TPU both are software-emulated but only used where
-exactness demands it.
+double precision. Both are used only where exactness demands it.
 """
 
 from __future__ import annotations
@@ -38,9 +37,9 @@ def chunked_sum_i64(x, bound_bits: int):
     < 2**bound_bits, using native int32 partial sums and widening to
     (software-emulated) int64 only at chunk granularity.
 
-    TPU motivation: 64-bit adds are emulated multi-op sequences; keeping
-    the O(B) inner work in int32 is the same limb strategy the Rice
-    pyramid uses (_split_partition_sums)."""
+    Keeping the O(B) inner work in int32 is the same limb strategy the
+    Rice pyramid uses (_split_partition_sums); whether the GPU's native
+    int64 makes it unnecessary is open (ROADMAP C3)."""
     n = x.shape[-1]
     chunk = 1 << max(0, 30 - bound_bits)  # chunk*|x| < 2^30, no overflow
     if chunk <= 1 or n <= chunk:

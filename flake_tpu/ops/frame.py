@@ -1,6 +1,6 @@
 """Batched per-frame analysis: the device-side encoder pipeline.
 
-This is the TPU-first inversion of the reference's per-frame call stack
+This is the batched inversion of the reference's per-frame call stack
 (SURVEY §3.2): everything the reference does serially per frame/channel/
 candidate-order happens here as dense ops over a [F, C, B] batch —
 stereo-mode estimation, wasted-bit removal, LPC analysis, the
@@ -17,21 +17,15 @@ from __future__ import annotations
 import dataclasses
 import functools
 
-import numpy as np
-
 import jax
 import jax.numpy as jnp
 
 from flake_tpu import params as P
 from flake_tpu.ops import lpc as lpc_ops
-from flake_tpu.ops import pallas_autocorr, pallas_sweep, pallas_sweep3, \
-    predict, stereo, wasted
+from flake_tpu.ops import predict, stereo, wasted
 from flake_tpu.ops.rice import (
     calc_rice_params_dynamic,
-    limit_max_partition_order,
     subframe_bits,
-    subframe_bits_dynamic,
-    subframe_bits_from_limbs,
 )
 
 U32MAX = 0xFFFFFFFF  # plain int: no device arrays at import time
@@ -60,29 +54,11 @@ class FrameConfig:
     max_partition_order: int
     precision: int = P.LPC_PRECISION
     lpc_dtype: str = "float64"
-    # autocorrelation backend: "auto" picks the Pallas compensated
-    # kernel on TPU (error-free f32 TwoSum accumulation in VMEM,
-    # ~2^-45 relative of the true sum — at least as accurate as the
-    # emulated-f64 path the TPU would otherwise run) whenever samples
-    # fit f32 exactly (obits <= 24) and the analysis dtype is float64,
-    # falling back to the XLA double-double formulation off-TPU;
-    # "exact" forces the emulated-f64 formulation; "dd" forces the XLA
-    # compensated path; "pallas" forces the kernel (TPU);
-    # "pallas_interp" runs the kernel in interpreter mode (CPU tests)
-    autocorr_mode: str = "auto"
-    # candidate-order sweep backend: "auto" = the XLA formulation (it
-    # fuses the whole sweep into one HBM pass and measures faster than
-    # the hand-written kernel end-to-end; see ops/pallas_sweep.py),
-    # "force" = the Pallas kernel on TPU when the shape qualifies,
-    # "interp" = Pallas in interpreter mode (CPU parity tests)
-    use_pallas: str = "auto"
 
     @classmethod
     def from_params(cls, p: P.EncodeParams, channels: int, bps: int,
                     block_size: int | None = None,
-                    lpc_dtype: str = "float64",
-                    use_pallas: str = "auto",
-                    autocorr_mode: str = "auto"):
+                    lpc_dtype: str = "float64"):
         return cls(
             block_size=block_size or p.block_size,
             channels=channels, bps=bps,
@@ -94,8 +70,6 @@ class FrameConfig:
             min_partition_order=int(p.min_partition_order),
             max_partition_order=int(p.max_partition_order),
             lpc_dtype=lpc_dtype,
-            use_pallas=use_pallas,
-            autocorr_mode=autocorr_mode,
         )
 
 
@@ -114,9 +88,7 @@ def _select_order_log(bits_all, min_order: int, max_order: int):
     arange = jnp.arange(max_order, dtype=jnp.int32)
 
     def bits_at(i):
-        # one-hot select instead of take_along_axis: TPU gathers cost
-        # ~15us each even at [N, 1] shapes, and this loop issues ~45
-        # of them — masked max over the 12-32 wide order axis is free
+        # one-hot select: a masked max over the 12-32 wide order axis
         m = arange == i[..., None].clip(0, max_order - 1)
         return jnp.max(jnp.where(m, bits_all, 0), axis=-1)
 
@@ -261,6 +233,26 @@ def finalize_analysis(cfg: FrameConfig, chans, obits, wasted_bits,
     }
 
 
+def candidate_order_bits(cN, qcoefs, shifts, obitsN, cfg: FrameConfig):
+    """The candidate-order sweep (the batched form of the
+    optimize.c:224-238 search loop) as max_order independent
+    static-order chains: each order's residual -> zigzag -> partition
+    sums -> k scan is one fully static graph that XLA fuses.
+
+    cN int32 [N, B]; qcoefs/shifts per candidate order from
+    :func:`flake_tpu.ops.lpc.quantize_lpc_coefs`; obitsN int32 [N].
+    Returns the estimated subframe bits uint32 [N, max_order]."""
+    pieces = []
+    for o in range(1, cfg.max_prediction_order + 1):
+        r = predict.residual_lpc(cN, qcoefs[:, o - 1, :],
+                                 shifts[:, o - 1], o,
+                                 narrow=cfg.bps <= 16)
+        pieces.append(subframe_bits(
+            r, cfg.block_size, o, obitsN, cfg.min_partition_order,
+            cfg.max_partition_order, cfg.precision, True))
+    return jnp.stack(pieces, axis=-1)
+
+
 def analyze_frames(samples, cfg: FrameConfig, hdr_bits=None):
     """Analyze a batch of frames.
 
@@ -348,48 +340,15 @@ def analyze_frames(samples, cfg: FrameConfig, hdr_bits=None):
         coefs = jnp.zeros((F, C, P.MAX_LPC_ORDER), jnp.int32)
     else:
         # LPC path (optimize.c:192-275) — computed on the flattened
-        # [N = F*C] stream batch: XLA's layout for a trailing small
-        # channel axis ([F, C, B]) measured ~4.7x slower for the
-        # autocorrelation front-end than [N, B] (docs/PERF.md); every
-        # per-(frame, channel) quantity is independent here, so the
-        # reshape is free
+        # [N = F*C] stream batch: every per-(frame, channel) quantity is
+        # independent here, so the reshape is free
         min_o = cfg.min_prediction_order
         max_o = cfg.max_prediction_order
         N = F * C
         cN = chans.reshape(N, n)
         obitsN = obits.reshape(N)
         window = lpc_ops.welch_window(n)
-        ac_mode = cfg.autocorr_mode
-        if ac_mode not in ("auto", "exact", "dd", "pallas",
-                           "pallas_interp"):
-            raise ValueError(f"bad autocorr_mode {ac_mode!r}")
-        # mid/side adds one bit: samples fit f32 exactly iff bps+1 <= 24;
-        # wider content uses the kernel's limb-split prologue (round 5)
-        dd_ok = cfg.bps <= 23 and cfg.lpc_dtype == "float64"
-        ac_wide = cfg.bps > 23
-        if ac_mode == "auto":
-            if cfg.lpc_dtype != "float64":
-                ac_mode = "exact"
-            elif (jax.default_backend() == "tpu"
-                  and pallas_autocorr.supports(n, max_o)):
-                ac_mode = "pallas"
-            elif dd_ok:
-                ac_mode = "dd"
-            else:
-                ac_mode = "exact"
-        whi, wlo = lpc_ops.split_window_f32(window)
-        if ac_mode in ("pallas", "pallas_interp"):
-            autoc = pallas_autocorr.autocorr_dd_pallas(
-                cN, jnp.asarray(whi), jnp.asarray(wlo), max_order=max_o,
-                interpret=ac_mode == "pallas_interp",
-                wide=ac_wide) + 2.0
-        elif ac_mode == "dd":
-            autoc = lpc_ops.autocorr_dd(cN, max_o, jnp.asarray(whi),
-                                        jnp.asarray(wlo))
-        else:
-            autoc = lpc_ops.autocorr(cN, max_o, jnp.asarray(window),
-                                     dtype)
-        autoc = autoc.astype(dtype)
+        autoc = lpc_ops.autocorr(cN, max_o, jnp.asarray(window), dtype)
         method = cfg.order_method
         if method == P.OrderMethod.EST:
             # the reference EST path (lpc.c:125-162): Schur recursion
@@ -404,63 +363,14 @@ def analyze_frames(samples, cfg: FrameConfig, hdr_bits=None):
         qcoefs, shifts = lpc_ops.quantize_lpc_coefs(lpc_rows,
                                                     cfg.precision)
 
-        need_bits = method not in (P.OrderMethod.MAX, P.OrderMethod.EST)
         bits_all = None
-        pmax_static = limit_max_partition_order(pmax, n, 1)
-        if cfg.use_pallas not in ("auto", "force", "interp", "never"):
-            raise ValueError(f"bad use_pallas {cfg.use_pallas!r}")
-        interp = cfg.use_pallas == "interp"
-        use_v3 = pallas_sweep3.supports(n, cfg.bps, pmax_static, max_o)
-        if cfg.use_pallas == "auto":
-            # the v3 kernel is the measured default on TPU (3.24 ms vs
-            # 4.12 ms full-pipeline at level 8, docs/PERF.md) and is
-            # integer-exact, so selection is identical either way
-            kernel_ok = use_v3 and jax.default_backend() == "tpu"
-        else:
-            kernel_ok = (
-                cfg.use_pallas in ("force", "interp")
-                and (use_v3 or pallas_sweep.supports(n, cfg.bps,
-                                                     pmax_static))
-                and (interp or jax.default_backend() == "tpu"))
-        if need_bits and kernel_ok:
-            # Pallas sweep: residual + zigzag + partition limb sums for
-            # every candidate order in one VMEM-resident kernel, then
-            # the shared partition-order scan on the tiny sums (v3:
-            # streams-along-lanes; v2 fallback for psize < 8 shapes)
-            if use_v3:
-                lo, hi = pallas_sweep3.sweep_partition_limbs3(
-                    cN, qcoefs, shifts, max_order=max_o,
-                    pmax_static=pmax_static, interpret=interp)
-            else:
-                lo, hi = pallas_sweep.sweep_partition_limbs(
-                    cN, qcoefs, shifts, max_order=max_o,
-                    pmax_static=pmax_static, interpret=interp)
-            o_arr = jnp.broadcast_to(
-                jnp.arange(1, max_o + 1, dtype=jnp.int32), (N, max_o))
-            bits_all = subframe_bits_from_limbs(
-                lo, hi, n, o_arr, obitsN[..., None], pmin, pmax,
-                cfg.precision, True)
-        elif need_bits:
-            # candidate-order sweep as max_o independent static-order
-            # chains (the batched form of the optimize.c:224-238 search
-            # loop): each order's residual -> zigzag -> partition sums
-            # -> k scan is one fully static graph, which XLA fuses into
-            # a single HBM pass per order — measured ~2x faster than a
-            # chunked candidate-axis formulation, whose [N, CHUNK, B]
-            # intermediates were memory-bound (docs/PERF.md)
-            pieces = []
-            for o in range(1, max_o + 1):
-                r = predict.residual_lpc(cN, qcoefs[:, o - 1, :],
-                                         shifts[:, o - 1], o,
-                                         narrow=cfg.bps <= 16)
-                pieces.append(subframe_bits(
-                    r, n, o, obitsN, pmin, pmax, cfg.precision, True))
-            bits_all = jnp.stack(pieces, axis=-1)  # [N, max_o]
+        if method not in (P.OrderMethod.MAX, P.OrderMethod.EST):
+            bits_all = candidate_order_bits(cN, qcoefs, shifts, obitsN,
+                                            cfg)
 
         order = select_order(cfg, bits_all, refs, (N,))
 
-        # one-hot row select (gather-free: TPU gathers are scalar-unit
-        # bound; a 12-32 way masked sum is a handful of fused selects)
+        # one-hot row select: a 12-32 way masked sum of fused selects
         oh_row = (jnp.arange(max_o, dtype=jnp.int32)
                   == (order - 1)[..., None].clip(0, max_o - 1))
         coefs = jnp.sum(jnp.where(oh_row[..., None], qcoefs, 0),

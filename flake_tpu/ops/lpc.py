@@ -1,7 +1,7 @@
 """Batched LPC analysis: Welch window, autocorrelation, Levinson-Durbin,
 coefficient quantization.
 
-TPU-first restatement of the reference analysis chain (lpc.c):
+Batched restatement of the reference analysis chain (lpc.c):
 
 - windowing + autocorrelation are dense vector ops over [..., B] blocks
   (lpc.c:28-71), keeping the reference's additive +2.0 bias per lag (its
@@ -14,9 +14,8 @@ TPU-first restatement of the reference analysis chain (lpc.c):
 - quantization reproduces the shift search and error-feedback rounding
   exactly (lpc.c:167-219), vectorised over batch and candidate order.
 
-Float dtype is configurable: float64 matches the reference's doubles
-(software-emulated on TPU), float32 trades exact parity of the *search*
-for speed — either way the emitted stream stays valid and lossless
+Float dtype is configurable: float64 matches the reference's doubles,
+float32 trades exact parity of the *search* for speed — either way the emitted stream stays valid and lossless
 because residuals are integer-exact against whatever coefficients were
 chosen.
 """
@@ -62,113 +61,6 @@ def autocorr(x, max_order: int, window, dtype=jnp.float64):
             s = jnp.sum(d[..., lag:] * d[..., :n - lag], axis=-1)
         cols.append(s + 2.0)
     return jnp.stack(cols, axis=-1)
-
-
-# -- double-double (two-float32) autocorrelation --------------------------
-#
-# float64 is software-emulated on TPU and dominates the level-8 analysis
-# cost; the windowed autocorrelation only *feeds a heavily quantized
-# search* (15-bit coefficient quantization, |ref|>0.10 thresholds), so a
-# two-float32 compensated formulation with ~2^-44 relative error — i.e.
-# within a few ulps of the reference's own double arithmetic, whose
-# summation order we do not replicate anyway — selects the same
-# parameters while running entirely on native f32 VPU ops. The parity
-# suite (byte-identity vs the scalar float64 oracle and the compiled
-# reference binary) gates this path.
-
-def _two_sum(a, b):
-    """Knuth TwoSum: s + e == a + b exactly (6 f32 flops)."""
-    s = a + b
-    bb = s - a
-    e = (a - (s - bb)) + (b - bb)
-    return s, e
-
-
-def _two_prod(a, b):
-    """Dekker TwoProd via 12/12-bit splits: p + e == a*b exactly for
-    f32 inputs (no FMA dependency)."""
-    p = a * b
-
-    def split(v):
-        c = v * jnp.float32(4097.0)      # 2^12 + 1
-        hi = c - (c - v)
-        return hi, v - hi
-
-    ahi, alo = split(a)
-    bhi, blo = split(b)
-    e = ((ahi * bhi - p) + ahi * blo + alo * bhi) + alo * blo
-    return p, e
-
-
-def _dd_reduce(hi, lo):
-    """Tree reduction of a double-float array over the last axis.
-
-    Each TwoSum level is error-free on the hi stream; only the lo
-    accumulation rounds, giving ~2^-44 relative error over 2^12 terms."""
-    n = hi.shape[-1]
-    while n > 1:
-        if n % 2:
-            pad = [(0, 0)] * (hi.ndim - 1) + [(0, 1)]
-            hi = jnp.pad(hi, pad)
-            lo = jnp.pad(lo, pad)
-            n += 1
-        hi = hi.reshape(hi.shape[:-1] + (n // 2, 2))
-        lo = lo.reshape(lo.shape[:-1] + (n // 2, 2))
-        s, e = _two_sum(hi[..., 0], hi[..., 1])
-        lo = e + (lo[..., 0] + lo[..., 1])
-        hi = s
-        # renormalise so |lo| <= ulp(hi)/2 stays true down the tree
-        hi, lo = _two_sum(hi, lo)
-        n //= 2
-    return hi[..., 0], lo[..., 0]
-
-
-def split_window_f32(window64: np.ndarray):
-    """Host-side exact split of a float64 window into an f32 pair
-    (w == hi + lo to within 2^-49 relative)."""
-    hi = window64.astype(np.float32)
-    lo = (window64 - hi.astype(np.float64)).astype(np.float32)
-    return hi, lo
-
-
-def autocorr_dd(x, max_order: int, window_hi, window_lo,
-                reduce: str = "f64"):
-    """Compensated windowed autocorrelation (native-f32 product path).
-
-    ``x`` int32 [..., B] with |x| < 2^24 (exact in f32 — true for all
-    bps<=16 content incl. mid/side); window_{hi,lo} f32 [B] from
-    :func:`split_window_f32`. Returns float64 [..., max_order+1]
-    matching :func:`autocorr` to ~2^-50 relative: every lag product is
-    error-free (TwoProd), so the only rounding left is the f64
-    accumulation itself — the same noise floor as the reference's own
-    doubles, whose summation order we do not replicate anyway.
-
-    ``reduce``: "f64" accumulates the exact product streams with
-    emulated-f64 adds (no f64 multiplies anywhere); "dd" keeps the
-    all-f32 TwoSum tree (slower on current XLA: 12 reshape levels)."""
-    n = x.shape[-1]
-    xf = x.astype(jnp.float32)
-    d_hi, e = _two_prod(xf, window_hi)
-    d_lo = e + xf * window_lo
-
-    cols = []
-    for lag in range(max_order + 1):
-        if lag == 0:
-            a_hi = b_hi = d_hi
-            a_lo = b_lo = d_lo
-        else:
-            a_hi, a_lo = d_hi[..., lag:], d_lo[..., lag:]
-            b_hi, b_lo = d_hi[..., :n - lag], d_lo[..., :n - lag]
-        p_hi, e = _two_prod(a_hi, b_hi)
-        p_lo = e + (a_hi * b_lo + a_lo * b_hi)
-        if reduce == "dd":
-            s_hi, s_lo = _dd_reduce(p_hi, p_lo)
-            s = s_hi.astype(jnp.float64) + s_lo.astype(jnp.float64)
-        else:
-            s = jnp.sum(p_hi.astype(jnp.float64)
-                        + p_lo.astype(jnp.float64), axis=-1)
-        cols.append(s)
-    return jnp.stack(cols, axis=-1) + 2.0  # reference bias (lpc.c:57-67)
 
 
 def levinson_all_orders(autoc):
@@ -330,8 +222,7 @@ def quantize_lpc_coefs(lpc, precision: int):
     # closed form of the reference's downward shift scan (lpc.c:193-206):
     # the loop yields the largest sh in [0,15] with cmax * 2^sh <= qmax
     # (or 15 when even 2^15 stays under, e.g. cmax == 0). Estimate the
-    # exponent from the float32 image of cmax (bit extraction — f64
-    # frexp does not lower on TPU), then resolve the true s* with exact
+    # exponent from the float32 image of cmax (bit extraction), then resolve the true s* with exact
     # f64 power-of-two comparisons in a +-2 window: f32 rounding moves
     # the exponent by at most one, and the qmax boundary by one more.
     # 4 parallel comparisons replace the 15-step sequential loop.

@@ -1,9 +1,9 @@
 """Batched residual computation: fixed predictors and quantized LPC.
 
-TPU-first restatement of optimize.c's residual loops: the per-sample
+Batched restatement of optimize.c's residual loops: the per-sample
 switch (optimize.c:84-119) becomes lag-shifted vector multiply-adds over
 the whole block, batched over frames/channels. Accumulation is int64
-(software pairs on TPU) so residuals are bit-exact against the decoder's
+so residuals are bit-exact against the decoder's
 reconstruction — products of (<=26-bit sample) x (15-bit coef) and their
 <=32-term sums must not round.
 
@@ -93,8 +93,8 @@ def residual_lpc_dynamic(smp, coefs, shift, order, max_order: int,
 
     ``narrow``: samples are known to fit 17 bits signed (bps <= 16 after
     mid/side), so each (sample x 15-bit coef) product fits int32 exactly
-    and only the tap *accumulation* needs int64 — avoiding the costly
-    emulated 64-bit multiplies on TPU. Bit-exact either way."""
+    and only the tap *accumulation* needs int64 — avoiding 64-bit
+    multiplies (see ROADMAP C3). Bit-exact either way."""
     n = smp.shape[-1]
     order_b = order[..., None]
     # smp may carry fewer broadcast dims than order/coefs (e.g. a

@@ -1,6 +1,6 @@
 """Batched Rice partition-order and parameter search.
 
-TPU-first restatement of the reference's search (rice.c): every serial
+Batched restatement of the reference's search (rice.c): every serial
 scan becomes a dense tensor reduction — the partition-sum pyramid is a
 reshape-sum plus pairwise folds (rice.c:76-103), the k scan is a 31-wide
 vector argmin (rice.c:30-45), and the partition-order scan is a 9-step
@@ -54,9 +54,8 @@ def _split_partition_sums(z32, parts: int, psize: int):
     int32 element-wise work: split into 16-bit limbs, hierarchical int32
     partial sums, and assemble uint64 only at partition granularity.
 
-    TPU motivation: 64-bit integer ops are software-emulated and
-    dominate the Rice search cost; limb arithmetic keeps the O(B) work
-    in native int32. Returns uint64 [..., parts]."""
+    Limb arithmetic keeps the O(B) work in int32 (chosen where 64-bit
+    integer ops were emulated; ROADMAP C3 measures it on the GPU). Returns uint64 [..., parts]."""
     lo = jnp.bitwise_and(z32, jnp.uint32(0xFFFF)).astype(jnp.int32)
     hi = (z32 >> jnp.uint32(16)).astype(jnp.int32)
 
@@ -108,7 +107,7 @@ def find_optimal_k(sums, cnt):
 
 def find_optimal_k_u32(sums, cnt):
     """find_optimal_k computed entirely in native uint32 limb arithmetic
-    (64-bit ints are software-emulated on TPU).
+    (chosen where 64-bit ints were emulated; see ROADMAP C3).
 
     Bit-exact with the uint64 formula: (sum - cnt/2) is formed mod 2^64
     limb-wise (borrow propagation), the >>k keeps only the low 32 result
@@ -275,40 +274,6 @@ def _dynamic_porder_scan(sums, n: int, order, pmin: int, pmax: int,
             best_kgrid = jnp.where(take[..., None], kgrid, best_kgrid)
 
     return best_bits, best_porder, best_method, best_params, best_kgrid
-
-
-def subframe_bits_from_limbs(lo, hi, n: int, order, obits, pmin: int,
-                             pmax: int, precision: int, is_lpc: bool):
-    """subframe_bits_dynamic computed from precomputed partition limb
-    sums (the Pallas sweep kernel's output) instead of residuals.
-
-    lo/hi int32 [..., G] hold 16-bit-limb zigzag sums at granularity
-    gs = n // G >= the pmax partition size; they are folded to the
-    pmax_static level and fed to the shared partition-order scan, so the
-    resulting bit counts are identical to the residual-based path."""
-    pmax_static = limit_max_partition_order(pmax, n, 1)
-    parts_max = 1 << pmax_static
-    G = lo.shape[-1]
-    if G != parts_max:  # kernel emitted finer granularity; fold groups
-        sub = G // parts_max
-        lo = lo.reshape(lo.shape[:-1] + (parts_max, sub)) \
-            .sum(axis=-1, dtype=jnp.int64)
-        hi = hi.reshape(hi.shape[:-1] + (parts_max, sub)) \
-            .sum(axis=-1, dtype=jnp.int64)
-    sums = [None] * (pmax_static + 1)
-    sums[pmax_static] = (lo.astype(jnp.uint64)
-                         + (hi.astype(jnp.uint64) << 16))
-    _fold_pyramid(sums, pmax_static)
-
-    batch = lo.shape[:-1]
-    bits, _, method, _, _ = _dynamic_porder_scan(
-        sums, n, order, pmin, pmax, pmax_static, batch)
-    o64 = order.astype(jnp.uint64)
-    overhead = o64 * obits.astype(jnp.uint64) + 2
-    if is_lpc:
-        overhead = overhead + (4 + 5 + o64 * precision)
-    return u32(bits.astype(jnp.uint64) + overhead
-               + method.astype(jnp.uint64) + 4)
 
 
 def calc_rice_params_dynamic(res, n: int, order, pmin: int, pmax: int,

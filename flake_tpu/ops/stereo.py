@@ -1,6 +1,6 @@
 """Batched stereo decorrelation: mode estimation + transform.
 
-TPU-first restatement of encode.c:598-694: the per-sample second-order
+Batched restatement of encode.c:598-694: the per-sample second-order
 residual sums become vector reductions, the four mode scores a tiny
 argmin, and the in-place channel transforms a mask-select over all four
 precomputed variants (cheap: two adds per sample).
@@ -25,7 +25,7 @@ def decorr_mode(left, right, n: int, bps: int = 16):
 
     left/right int32 [F, B]. Returns mode int32 [F]. For bps <= 27 the
     second-order diffs fit int32 natively and the O(B) abs-sums run as
-    chunked int32 reductions (int64 is software-emulated on TPU)."""
+    chunked int32 reductions (see ROADMAP C3)."""
     if bps <= 27:  # |lt - rt| < 2^(bps+4) fits int32
         l32, r32 = left, right
         lt = l32[..., 2:] - 2 * l32[..., 1:-1] + l32[..., :-2]

@@ -1,6 +1,6 @@
 """Batched wasted-bits detection and removal.
 
-TPU-first restatement of encode.c:558-593: the reference's per-sample
+Batched restatement of encode.c:558-593: the reference's per-sample
 scan for the minimum trailing-zero count is equivalent to a single
 OR-reduction followed by one count-trailing-zeros — min over samples of
 ctz(s) == ctz(OR of all samples).

@@ -6,7 +6,7 @@ integer-only configurations (fixed prediction, levels 0-2) are expected to
 be byte-identical to the reference, and floating-point configurations
 (LPC) differ only in which *valid* encoding is selected.
 
-It is the correctness oracle for the batched TPU pipeline — slow on
+It is the correctness oracle for the batched device pipeline — slow on
 purpose, optimized for clarity and semantic fidelity.
 """
 

@@ -15,8 +15,7 @@ with globally correct frame numbering, then the only cross-host state is
      assembles header + shard bytes + STREAMINFO rewrite.
 
 The reference is single-process (its TODO:22 lists multi-threading as
-unimplemented); this module is the pod-scale execution path the TPU
-design exists for. A 2-process CPU job produces bytes identical to
+unimplemented); this module is the multi-process execution path. A 2-process CPU job produces bytes identical to
 single-host ``Encoder.encode_stream`` (tests/test_distributed.py).
 """
 

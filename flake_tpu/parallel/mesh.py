@@ -1,12 +1,12 @@
 """Multi-chip encoding: frame data-parallelism + in-frame sequence
 parallelism over a jax.sharding.Mesh.
 
-The reference is single-threaded (SURVEY §2.5-2.6); the TPU design
-shards *frames* across chips (frames are self-contained: warm-up samples
-are in-frame, frame numbers derive from global offsets) and, within a
-frame, can shard the O(B*lag) autocorrelation over a second mesh axis
-with a ppermute halo exchange + psum — collectives ride ICI, exactly the
-pattern the format's independence makes free.
+The reference is single-threaded (SURVEY §2.5-2.6); this design shards
+*frames* across chips (frames are self-contained: warm-up samples are
+in-frame, frame numbers derive from global offsets) and, within a frame,
+can shard the O(B*lag) autocorrelation over a second mesh axis with a
+ppermute halo exchange + psum — the pattern the format's independence
+makes free.
 
 Axes:
   dp — frames (pure data parallel; the throughput axis)
@@ -55,15 +55,16 @@ def make_mesh(n_devices: int | None = None, sp: int = 1,
 
 
 def autocorr_sp(chans, max_order: int, window, mesh_axis: str = "sp"):
-    """Sequence-parallel windowed autocorrelation (plain-float path).
+    """Sequence-parallel windowed autocorrelation.
 
     Runs inside shard_map with the sample axis sharded over
     ``mesh_axis``: each rank computes lag products over its local
     window plus a halo of ``max_order`` samples fetched from the left
     neighbour via ppermute, then psums partial lag sums. Bitwise
     equality with the single-device version is not guaranteed (float
-    summation order) — both produce valid encodings. Used only when the
-    compensated path below does not apply (bps > 23 / f32 mode).
+    summation order); 15-bit coefficient quantisation absorbs the
+    ~1e-14 relative difference on real content, and either way both
+    produce valid, lossless encodings.
 
     chans: int32 [F, C, Bs] local shard of the sample axis.
     window: float [Bs] local shard of the Welch window.
@@ -90,55 +91,6 @@ def autocorr_sp(chans, max_order: int, window, mesh_axis: str = "sp"):
     total = jax.lax.psum(partial, mesh_axis)
     # the reference's +2.0 accumulator bias (lpc.c:57-67), added once
     return total + 2.0
-
-
-def autocorr_sp_dd(chans, max_order: int, window_hi, window_lo,
-                   mesh_axis: str = "sp"):
-    """Sequence-parallel *compensated* windowed autocorrelation — the
-    same TwoProd/exact-product formulation as the dense TPU path
-    (ops/lpc.py autocorr_dd): per shard, windowed samples become exact
-    double-float pairs, every lag product is error-free, and only the
-    float64 accumulation rounds; the psum adds <=sp further f64 terms
-    in fixed rank order. This keeps the sp path's accuracy in the same
-    ~2^-50 class as the dense path (ADVICE r3: the plain-f64 sp sum sat
-    a quantization boundary away from the dense compensated result).
-
-    Cross-path bitwise equality with the dense path remains
-    content-probabilistic (different summation grouping) — what sp
-    guarantees structurally is rank-deterministic, valid, lossless
-    output; the parity tests pin fixed content.
-
-    chans int32 [F, C, Bs] (|x| < 2^24); window_{hi,lo} f32 [Bs] local
-    shards of the split window. Returns f64 [F, C, max_order+1]
-    replicated over ``mesh_axis``, incl. the reference +2.0 bias.
-    """
-    axis_size = jax.lax.psum(1, mesh_axis)
-    idx = jax.lax.axis_index(mesh_axis)
-    xf = chans.astype(jnp.float32)
-    d_hi, e = lpc_ops._two_prod(xf, window_hi)
-    d_lo = e + xf * window_lo
-
-    perm = [(i, (i + 1) % axis_size) for i in range(axis_size)]
-
-    def left(v):
-        h = jax.lax.ppermute(v[..., -max_order:], mesh_axis, perm)
-        return jnp.where(idx == 0, 0.0, h)
-
-    ext_hi = jnp.concatenate([left(d_hi), d_hi], axis=-1)
-    ext_lo = jnp.concatenate([left(d_lo), d_lo], axis=-1)
-
-    n_local = d_hi.shape[-1]
-    cols = []
-    for lag in range(max_order + 1):
-        start = max_order - lag
-        b_hi = ext_hi[..., start:start + n_local]
-        b_lo = ext_lo[..., start:start + n_local]
-        p_hi, err = lpc_ops._two_prod(d_hi, b_hi)
-        p_lo = err + (d_hi * b_lo + d_lo * b_hi)
-        cols.append(jnp.sum(p_hi.astype(jnp.float64)
-                            + p_lo.astype(jnp.float64), axis=-1))
-    partial = jnp.stack(cols, axis=-1)
-    return jax.lax.psum(partial, mesh_axis) + 2.0
 
 
 def sp_supported(cfg: FrameConfig, sp: int) -> bool:
@@ -269,8 +221,8 @@ def analyze_frames_sp(samples_l, cfg: FrameConfig, hdr_bits,
     Every integer stage (stereo scores, wasted bits, residuals, Rice
     partition sums, exact bit counts) reduces across shards exactly, so
     parameter selection matches the dense path bit-for-bit; only the
-    autocorrelation sums float in shard order (same ~1e-12 class as the
-    dense compensated path — gated by the sp-vs-dense byte test).
+    autocorrelation sums float in shard order (gated by the
+    sp-vs-dense byte tests).
 
     samples_l int32 [F, B_l, C] (local shard of the sample axis).
     Returns the analyze_frames dict with ``residual`` still sp-sharded
@@ -327,22 +279,9 @@ def analyze_frames_sp(samples_l, cfg: FrameConfig, hdr_bits,
     cN = chans.reshape(N, b_l)
     obitsN = obits.reshape(N)
     dtype = jnp.float64 if cfg.lpc_dtype == "float64" else jnp.float32
-    # same backend rule as the dense path (ops/frame.py): compensated
-    # exact-product accumulation whenever samples fit f32 exactly
-    dd_ok = cfg.bps <= 23 and cfg.lpc_dtype == "float64"
-    if dd_ok:
-        whi, wlo = lpc_ops.split_window_f32(lpc_ops.welch_window(n))
-        whi_l = jax.lax.dynamic_slice_in_dim(jnp.asarray(whi),
-                                             rank * b_l, b_l)
-        wlo_l = jax.lax.dynamic_slice_in_dim(jnp.asarray(wlo),
-                                             rank * b_l, b_l)
-        autoc = autocorr_sp_dd(cN, max_o, whi_l, wlo_l, sp_axis) \
-            .astype(dtype)
-    else:
-        window = jnp.asarray(lpc_ops.welch_window(
-            n, np.float64 if cfg.lpc_dtype == "float64" else np.float32))
-        window_l = jax.lax.dynamic_slice_in_dim(window, rank * b_l, b_l)
-        autoc = autocorr_sp(cN, max_o, window_l, sp_axis).astype(dtype)
+    window = jnp.asarray(lpc_ops.welch_window(n), dtype)
+    window_l = jax.lax.dynamic_slice_in_dim(window, rank * b_l, b_l)
+    autoc = autocorr_sp(cN, max_o, window_l, sp_axis)
 
     method = cfg.order_method
     if method == P.OrderMethod.EST:
@@ -387,8 +326,7 @@ def analyze_frames_sp(samples_l, cfg: FrameConfig, hdr_bits,
 
     order = select_order(cfg, bits_all, refs, (N,))
 
-    # gather-free one-hot row select (mirrors frame.py: TPU gathers
-    # are scalar-unit bound, a masked sum over <=32 orders is free)
+    # gather-free one-hot row select (mirrors frame.py)
     oh_row = (jnp.arange(max_o, dtype=jnp.int32)
               == (order - 1)[..., None].clip(0, max_o - 1))
     coefs = jnp.sum(jnp.where(oh_row[..., None], qcoefs, 0), axis=-2)
@@ -522,9 +460,8 @@ def make_sharded_analyzer(cfg: FrameConfig, mesh: Mesh):
     return run
 
 
-def make_sharded_packer(cfg: FrameConfig, mesh: Mesh,
-                        backend: str = "auto"):
-    """Sharded analysis + ON-DEVICE bitstream emission (round 5).
+def make_sharded_packer(cfg: FrameConfig, mesh: Mesh):
+    """Sharded analysis + ON-DEVICE bitstream emission.
 
     The emission stage (ops/bitpack.py) is per-frame-local, so it runs
     inside the shard_map body on each chip's own frames: under dp the
@@ -560,28 +497,22 @@ def make_sharded_packer(cfg: FrameConfig, mesh: Mesh,
             sub["residual"] = res
             hb = jax.lax.dynamic_slice_in_dim(hdr_bytes_l, r * fs, fs, 0)
             hn = jax.lax.dynamic_slice_in_dim(hdr_nb_l, r * fs, fs, 0)
-            words, tb, ovf = bitpack.pack_frames_device(
-                sub, hb, hn, cfg, backend=backend)
+            words, tb = bitpack.pack_frames_device(sub, hb, hn, cfg)
             fb_l = sub["frame_bytes"]
         else:
             out = analyze_frames(samples_l, cfg, hdr_bits_l)
-            words, tb, ovf = bitpack.pack_frames_device(
-                out, hdr_bytes_l, hdr_nb_l, cfg, backend=backend)
+            words, tb = bitpack.pack_frames_device(
+                out, hdr_bytes_l, hdr_nb_l, cfg)
             fb_l = out["frame_bytes"]
         gmax = jax.lax.pmax(jnp.max(out["frame_bytes"]), "dp")
         if sp > 1:
             gmax = jax.lax.pmax(gmax, "sp")
-        ov_any = jnp.any(ovf)
-        ov_any = jax.lax.pmax(ov_any.astype(jnp.int32), "dp")
-        if sp > 1:
-            ov_any = jax.lax.pmax(ov_any, "sp")
         return {"words": words, "total_bits": tb, "frame_bytes": fb_l,
-                "global_max_frame_bytes": gmax,
-                "overflow": ov_any > 0}
+                "global_max_frame_bytes": gmax}
 
     fspec = PS(("dp", "sp")) if use_sp else PS("dp")
     out_spec = {"words": fspec, "total_bits": fspec, "frame_bytes": fspec,
-                "global_max_frame_bytes": PS(), "overflow": PS()}
+                "global_max_frame_bytes": PS()}
     in_samples = PS("dp", "sp") if use_sp else PS("dp")
     shard = jax.shard_map(
         local, mesh=mesh,

@@ -1,6 +1,6 @@
 """Encoding parameters, compression-level presets, and validation.
 
-TPU-native re-implementation of the parameter surface of the reference
+Re-implementation of the parameter surface of the reference
 encoder's public API (reference: libflake/flake.h:59-161 for the param
 struct, libflake/encode.c:158-266 for level presets, encode.c:268-373 for
 validation and FLAC-Subset classification).

@@ -2,7 +2,7 @@
 
 The reference's only profiling hooks are a disabled rdtsc cycle timer
 (common.h:83-116) and shell-script wall clocks (util/flake-test.sh:25).
-The TPU-native equivalents here:
+The device-side equivalents here:
 
 - :func:`trace` — context manager around ``jax.profiler`` producing a
   TensorBoard/XProf trace of the device pipeline;
@@ -82,7 +82,7 @@ class StageTimer:
 
 def device_memory_stats() -> list[dict]:
     """Per-device live HBM numbers (bytes_in_use / limit), when the
-    backend exposes them (TPU does; CPU returns empty)."""
+    backend exposes them (the GPU does; the CPU returns empty)."""
     out = []
     for d in jax.devices():
         stats = getattr(d, "memory_stats", lambda: None)()

@@ -7,9 +7,13 @@ bytes are then also decode-verified lossless."""
 import numpy as np
 import pytest
 
+import jax.numpy as jnp
+
 from flake_tpu import params as P
 from flake_tpu.decoder import decode_stream
 from flake_tpu.encoder import Encoder
+from flake_tpu.ops import bitpack
+from flake_tpu.ops.frame import FrameConfig, analyze_frames_jit
 
 
 def _encode_both(pcm, cfg, batch_frames=8, start_frame=0):
@@ -45,6 +49,23 @@ def test_device_pack_levels_identical(level):
     cfg = P.StreamConfig(channels=2, sample_rate=44100,
                          bits_per_sample=16, samples=n,
                          params=P.set_defaults(level))
+    host, dev = _encode_both(pcm, cfg)
+    assert host == dev
+    d = decode_stream(dev)
+    assert d.md5_ok and np.array_equal(d.samples, pcm)
+
+
+@pytest.mark.parametrize("level,block_size,bps,sr", [
+    (12, 8192, 16, 44100), (8, 4608, 16, 44100), (8, 4096, 24, 96000)])
+def test_device_emission_matches_host_packer(level, block_size, bps, sr):
+    """The XLA word merge against the host C++ packer at the block
+    sizes and depths of the benchmark's configurations."""
+    n = 2 * block_size + 333
+    pcm = _tone(n, 2, 1 << (bps - 3), seed=level, bps=bps)
+    params = P.set_defaults(level)
+    params.block_size = block_size
+    cfg = P.StreamConfig(channels=2, sample_rate=sr, bits_per_sample=bps,
+                         samples=n, params=params)
     host, dev = _encode_both(pcm, cfg)
     assert host == dev
     d = decode_stream(dev)
@@ -126,8 +147,8 @@ def test_device_pack_vbs_superblocks():
 
 def test_device_pack_bps32_stereo_split_fields():
     """bps-32 stereo (33-bit side fields, encode.c:676-693): sample
-    fields wider than 32 bits emit as (hi, lo) slot pairs that the
-    combiner re-joins — byte parity vs the host packer (round 5)."""
+    fields wider than 32 bits emit as (hi, lo) slot pairs — byte parity
+    vs the host packer."""
     from flake_tpu.ops.bitpack import supports
     from flake_tpu.ops.frame import FrameConfig
 
@@ -175,3 +196,42 @@ def test_bps32_side_overflow_veto_lossless():
     assert host == dev
     d = decode_stream(dev)
     assert d.md5_ok and np.array_equal(d.samples, pcm)
+
+
+def test_granule_gather_reassembles_frames():
+    n, F = 4096, 5
+    rng = np.random.default_rng(9)
+    sig = rng.integers(-8000, 8000, size=(F, n, 2)).astype(np.int32)
+    sig[F // 2] = (2000 * np.sin(np.arange(n) * 0.01)) \
+        .astype(np.int32)[:, None]
+    cfg = FrameConfig.from_params(P.set_defaults(5), 2, 16, block_size=n)
+    hb, hn = bitpack.frame_header_bytes(
+        np.arange(F, dtype=np.uint32), bs_code=P.blocksize_code(n),
+        sr_code=P.samplerate_code(44100), allow_vbs=0)
+    an = analyze_frames_jit(jnp.asarray(sig), cfg,
+                            jnp.asarray((hn * 8).astype(np.int32)))
+    words, tb = bitpack.pack_frames_device(
+        an, jnp.asarray(hb), jnp.asarray(hn), cfg)
+    fb = (np.asarray(tb) // 8).astype(np.int64)
+    n_live = 4                       # treat the last frame as padding
+    fb[n_live:] = 0
+    GB = bitpack.GRANULE_BYTES
+    wr = words.shape[1]
+    gpf = -(-wr // 8)
+    u = (fb[:n_live] + GB - 1) // GB
+    src = np.concatenate([np.arange(f * gpf, f * gpf + u[f])
+                          for f in range(n_live)]).astype(np.int32)
+    idx = np.zeros(max(8, src.size), np.int32)
+    idx[:src.size] = src
+    gr = np.asarray(bitpack.gather_granules_jit(words,
+                                                jnp.asarray(idx)))
+    by = gr.reshape(idx.size, GB // 4).byteswap().view(np.uint8)
+    goff = np.concatenate([[0], np.cumsum(u)]).astype(np.int64)
+    got = np.concatenate([
+        by[goff[f]:goff[f + 1]].reshape(-1)[:fb[f]]
+        for f in range(n_live)])
+
+    # reference: concatenate the per-frame byte views
+    slots = np.asarray(bitpack.words_to_slot_bytes(words))
+    want = np.concatenate([slots[f, :fb[f]] for f in range(n_live)])
+    assert np.array_equal(got, want)

@@ -102,7 +102,7 @@ def test_multi_file(tmp_path):
 
 
 def test_cli_lpc_dtype_float32(tmp_path, test_signal):
-    """TPU extension flag: float32 analysis still yields a lossless,
+    """Extension flag: float32 analysis still yields a lossless,
     verifiable stream."""
     import pathlib
     import numpy as np

@@ -112,7 +112,8 @@ def test_launcher_spawn(tmp_path):
     env.pop("XLA_FLAGS", None)
     rc = subprocess.run(
         [sys.executable, "-m", "flake_tpu.parallel.launch",
-         "--spawn", "2", "--coordinator", f"127.0.0.1:{port}",
+         "--spawn", "2", "--platform", "cpu",
+         "--coordinator", f"127.0.0.1:{port}",
          wav, "-o", out, "--level", "1", "--batch-frames", "4"],
         env=env, cwd=os.path.dirname(os.path.dirname(__file__)),
         timeout=300)

@@ -1,4 +1,4 @@
-"""Production (batched TPU pipeline) encoder tests.
+"""Production (batched device pipeline) encoder tests.
 
 The strongest check: the batched device path must be *byte-identical* to
 the scalar oracle for every configuration (the pipelines share no code —
@@ -171,3 +171,45 @@ def test_est_near_threshold_refs():
         assert_parity(pcm, level=5, block_size=512)
         if i < 2:
             assert_parity(pcm, level=6, block_size=1024)
+
+
+def _selection_signal(kind, n, bps, channels, seed=0):
+    rng = np.random.default_rng(seed)
+    lim = (1 << (bps - 1)) - 1
+    t = np.arange(n)
+    if kind == "sine_noise":
+        x = 0.3 * lim * np.sin(2 * np.pi * 440 * t / 44100) \
+            + 0.02 * lim * rng.standard_normal(n)
+    elif kind == "full_scale_random":
+        x = rng.integers(-lim, lim, n)
+    elif kind == "low_tone":
+        x = 0.9 * lim * np.sin(2 * np.pi * 40 * t / 44100)
+    elif kind == "constant":
+        x = np.full(n, 123)
+    elif kind == "zero":
+        x = np.zeros(n)
+    else:  # "wide": loud tone plus noise at the full bit depth
+        x = 0.45 * lim * np.sin(t * 0.002) \
+            + 0.01 * lim * rng.standard_normal(n)
+    chans = [x] + [0.97 * x + rng.integers(-lim // 64 - 1, lim // 64 + 1, n)
+                   for _ in range(channels - 1)]
+    return np.clip(np.stack(chans, 1), -lim, lim).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind,bps,channels", [
+    ("sine_noise", 16, 2), ("full_scale_random", 16, 2),
+    ("low_tone", 16, 2), ("constant", 16, 2), ("zero", 16, 2),
+    ("wide", 25, 1), ("wide", 26, 1), ("wide", 32, 2)])
+def test_level8_selection_matches_oracle(kind, bps, channels):
+    """Level 8 at its real 4096 block: the plain float64 analysis makes
+    every decision (stereo mode, order, coefficients, shift, partition
+    order) exactly as the scalar oracle does, on the narrow signals and
+    on 25-, 26- and 32/33-bit (stereo side) content."""
+    from flake_tpu.decoder import first_difference
+
+    pcm = _selection_signal(kind, 3 * 4096, bps, channels, seed=1)
+    blob = jax_encode(pcm, level=8, bps=bps, sample_rate=96000)
+    want = oracle(pcm, level=8, bps=bps, sample_rate=96000)
+    assert blob == want, first_difference(blob, want)
+    dec = decode_stream(blob)
+    assert dec.md5_ok and np.array_equal(dec.samples, pcm)

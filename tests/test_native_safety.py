@@ -102,3 +102,30 @@ def test_fuzz_random_analysis_never_segfaults():
             assert (lengths >= 0).all()
         except ValueError:
             pass
+
+
+def test_library_name_follows_source(tmp_path):
+    """A library is loaded only under the hash of the source and build
+    command it came from: edit either and the name changes."""
+    from flake_tpu import native
+
+    src = tmp_path / "lib.cpp"
+    src.write_text('extern "C" int f() { return 1; }\n')
+    first = native.lib_path(src)
+    assert native.ensure_built(src) == first and first.exists()
+    src.write_text('extern "C" int f() { return 2; }\n')
+    assert native.lib_path(src) != first
+    assert native.lib_path(src, ("-O0", "-shared", "-fPIC")) \
+        != native.lib_path(src)
+    assert native.lib_path(native._SRC).name.startswith("_packer-")
+
+
+def test_failed_build_raises(tmp_path):
+    from flake_tpu import native
+
+    src = tmp_path / "broken.cpp"
+    src.write_text("this is not C++\n")
+    with pytest.raises(RuntimeError, match="building"):
+        native.ensure_built(src)
+    assert not native.lib_path(src).exists()
+    assert list(tmp_path.glob("*.tmp")) == []

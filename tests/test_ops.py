@@ -175,6 +175,48 @@ def test_autocorr_matches_oracle():
     np.testing.assert_allclose(got, want, rtol=1e-12)
 
 
+def _autocorr_signals(B, bits, seed):
+    """Sine plus noise, full-scale random, low tone, constant, silence
+    and random rows at several levels, all within ``bits``-bit range."""
+    rng = np.random.default_rng(seed)
+    lim = (1 << (bits - 1)) - 1
+    t = np.arange(B)
+    rows = [
+        0.4 * lim * np.sin(2 * np.pi * 440 * t / 44100)
+        + 0.02 * lim * rng.standard_normal(B),
+        rng.integers(-lim, lim, B),
+        0.9 * lim * np.sin(2 * np.pi * 40 * t / 44100),
+        np.full(B, min(lim, 1234567)),
+        np.zeros(B),
+        rng.normal(0, lim / 3, B),
+        rng.normal(0, 255, B),
+        0.2 * lim * np.sin(t * 0.3),
+    ]
+    return np.clip(np.stack(rows), -lim, lim).astype(np.int64)
+
+
+@pytest.mark.parametrize("B,max_order,bits", [
+    (4096, 12, 16), (4608, 12, 16), (8192, 32, 16), (16384, 32, 24),
+    (4096, 12, 25), (4096, 12, 33)])
+def test_autocorr_f64_matches_fsum(B, max_order, bits):
+    """The plain float64 autocorrelation against an exactly rounded sum
+    of the same float64 products. The unscaled Welch window makes high
+    lags cancel, so the bound is relative to the exact sum at a few
+    ulps of the terms' magnitude: 5e-11."""
+    import math
+
+    x = _autocorr_signals(B, bits, seed=B + bits)
+    w = lpc_ops.welch_window(B)
+    # 33-bit rows do not fit int32; the f64 windowing is what matters
+    got = np.asarray(lpc_ops.autocorr(jnp.asarray(x.astype(np.float64)),
+                                      max_order, jnp.asarray(w)))
+    d = x.astype(np.float64) * w
+    want = np.array([[math.fsum(row[lag:] * row[:B - lag]) + 2.0
+                      for lag in range(max_order + 1)] for row in d])
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-300)
+    assert rel.max() < 5e-11, rel.max()
+
+
 def test_levinson_matches_oracle():
     smp = make_test_signal(1024, 1, 16)[:, 0]
     autoc = oracle.compute_autocorr(smp, 12)

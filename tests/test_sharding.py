@@ -146,8 +146,8 @@ def test_sp_est_near_threshold_adversarial():
     """sp twin of test_est_near_threshold_refs: AR(1) content whose
     first reflection coefficient sits within ulps of the EST
     |ref| > 0.10 threshold (lpc.c:149-156). The sp-sharded analysis
-    uses the same compensated autocorrelation formulation as the dense
-    path (autocorr_sp_dd), so selections must agree on this content."""
+    sums the float64 autocorrelation in another order than the dense
+    path; selections must still agree on this content."""
     import dataclasses
 
     from flake_tpu.parallel.mesh import make_sharded_analyzer
@@ -208,7 +208,7 @@ def test_sp_folds_into_dp_for_fixed_prediction():
 
 
 def test_sharded_device_emission_bitwise():
-    """Round 5: device emission under the mesh — the sharded packer's
+    """Device emission under the mesh — the sharded packer's
     word blocks and bit counts must equal the single-chip device pack
     bitwise, for dp-only and dp x sp meshes (the sp path reshards the
     residual with one all_to_all so every chip emits its own frames)."""
@@ -229,7 +229,7 @@ def test_sharded_device_emission_bitwise():
 
     dense = analyze_frames(jnp.asarray(samples), cfg,
                            jnp.asarray(hdr_bits))
-    w_ref, tb_ref, _ = bitpack.pack_frames_device(
+    w_ref, tb_ref = bitpack.pack_frames_device(
         dense, jnp.asarray(hb), jnp.asarray(hn), cfg)
 
     for sp in (1, 2):

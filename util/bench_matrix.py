@@ -6,7 +6,9 @@ slope-times (a) the batched analysis and (b) analysis + device
 bitstream emission, verifies device-pack/host-pack byte parity plus a
 lossless decode on real content, and emits one JSON line per config.
 
-Run on the TPU host:  python util/bench_matrix.py [--out docs/...]
+Run on a machine with an NVIDIA GPU (it fails without one):
+
+    python util/bench_matrix.py [--only NAME] [--quick]
 """
 
 from __future__ import annotations
@@ -29,6 +31,12 @@ CONFIGS = [
     ("level12_vbs_8192", 12, 16, 44100, 2, None),
     ("level8_6ch_48", 8, 16, 48000, 6, None),
 ]
+
+
+def batch_frames(block_size: int, channels: int) -> int:
+    """Frames per device batch: keeps the batch's memory footprint
+    comparable across configs (512 frames of 4096 stereo samples)."""
+    return max(64, min(512, (512 * 4096 * 2) // (block_size * channels)))
 
 
 def _audio(F, B, C, bps, seed):
@@ -80,6 +88,18 @@ def _slope(fn, inputs, reps=(1, 5), iters=8):
     return (wall(rep(k2)) - wall(rep(k1))) / (k2 - k1)
 
 
+def parity_audio(n, C, bps, sr, seed):
+    """A 440 Hz tone, a little quieter on each further channel, plus 2%
+    noise: int32 [n, C]."""
+    rng = np.random.default_rng(seed)
+    lim = (1 << (bps - 1)) - 1
+    t = np.arange(n)
+    sig = (0.4 * lim * np.sin(2 * np.pi * 440 * t / sr))
+    pcm = np.stack([sig * (1 - 0.05 * c) for c in range(C)], axis=1)
+    pcm += rng.normal(0, 0.02 * lim, pcm.shape)
+    return np.clip(pcm, -lim, lim - 1).astype(np.int32)
+
+
 def _parity(level, bps, sr, C, seconds=3.0):
     """Device-pack vs host-pack byte equality + lossless decode."""
     from flake_tpu import params as P
@@ -89,13 +109,7 @@ def _parity(level, bps, sr, C, seconds=3.0):
     from flake_tpu.ops.frame import FrameConfig
 
     n = int(sr * seconds)
-    rng = np.random.default_rng(level)
-    lim = (1 << (bps - 1)) - 1
-    t = np.arange(n)
-    sig = (0.4 * lim * np.sin(2 * np.pi * 440 * t / sr))
-    pcm = np.stack([sig * (1 - 0.05 * c) for c in range(C)], axis=1)
-    pcm += rng.normal(0, 0.02 * lim, pcm.shape)
-    pcm = np.clip(pcm, -lim, lim - 1).astype(np.int32)
+    pcm = parity_audio(n, C, bps, sr, seed=level)
 
     cfg = P.StreamConfig(channels=C, sample_rate=sr,
                          bits_per_sample=bps, samples=n,
@@ -119,23 +133,21 @@ def main() -> int:
                     help="run a single named config")
     args = ap.parse_args()
 
-    import jax
     import jax.numpy as jnp
 
-    import flake_tpu
-    flake_tpu._enable_compile_cache_if_tpu()
     from flake_tpu import params as P
+    from flake_tpu import platform
     from flake_tpu.ops import bitpack
     from flake_tpu.ops.frame import FrameConfig, analyze_frames
 
-    device = str(jax.devices()[0])
+    device = platform.require_gpu()
+    card = platform.card()
     for name, level, bps, sr, C, bs_over in CONFIGS:
         if args.only and name != args.only:
             continue
         p = P.set_defaults(level)
         B = bs_over or p.block_size
-        # keep the batch's HBM footprint comparable across configs
-        F = max(64, min(512, (512 * 4096 * 2) // (B * C)))
+        F = batch_frames(B, C)
         cfg = FrameConfig.from_params(p, C, bps, block_size=B)
         inputs = _audio(F, B, C, bps, seed=level)
         hdr_bits = jnp.full((F,), 48, jnp.int32)
@@ -151,7 +163,7 @@ def main() -> int:
 
         def f_emit(x):
             out = analyze_frames(x, cfg, hdr_bits)
-            words, tb, _ = bitpack.pack_frames_device(out, hbj, hnj, cfg)
+            words, tb = bitpack.pack_frames_device(out, hbj, hnj, cfg)
             return jnp.sum(tb.astype(jnp.int64)) \
                 + jnp.sum(words[:, ::7, ::11].astype(jnp.int64))
 
@@ -171,6 +183,7 @@ def main() -> int:
                                   if per_e else None),
             "meets_10000x": F * B / per_a / sr >= 10000.0,
             "device": device,
+            "card": card,
         }
         if not args.quick:
             dev_ok, ratio = _parity(level, bps, sr, C)
